@@ -1,0 +1,144 @@
+"""ResNet-50 v2 (pre-activation) per-frame feature encoder, inference form.
+
+Counterpart of ``human_dynamics_tpu/models/resnet.py`` (TF-slim
+``resnet_v2_50`` with global pooling: 2048-D phi per frame). What the
+slim layout needs, kept exactly:
+
+- The stride goes on the *last* unit of blocks 1-3.
+- An identity shortcut subsamples the raw input; a projection shortcut
+  reads the pre-activation.
+- Slim's ``conv2d_same`` pads (k-1)//2 on both sides for stride > 1; with
+  the odd kernels used here that equals the stride-1 "SAME" padding.
+- The root 3x3/2 max pool is XLA "SAME": for an even input it pads (0, 1),
+  not (1, 1), so it pads explicitly with -inf.
+- BatchNorm uses its moving statistics (eps 1e-5).
+
+The public input is NHWC, as in the JAX package; it is permuted to NCHW
+once at the trunk's entry. Module names follow the flax tree
+(``block{i}.unit_{j}`` for ``block{i}/unit_{j}/bottleneck_v2``), so that
+``utils.weights`` maps one onto the other.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from human_dynamics_tpu_torch.models.init import lecun_normal_
+
+RESNET50_BLOCKS = ((3, 256, 64), (4, 512, 128), (6, 1024, 256), (3, 2048, 512))
+
+
+class SlimBatchNorm(nn.Module):
+    """Inference BatchNorm with slim's names: gamma, beta, moving_mean,
+    moving_variance (eps 1e-5)."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-5, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.gamma = nn.Parameter(torch.ones(channels, device=device))
+        self.beta = nn.Parameter(torch.zeros(channels, device=device))
+        self.register_buffer("moving_mean", torch.zeros(channels, device=device))
+        self.register_buffer("moving_variance", torch.ones(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (N, C, H, W)."""
+        inv = torch.rsqrt(self.moving_variance + self.epsilon) * self.gamma
+        shift = self.beta - self.moving_mean * inv
+        return x * inv[:, None, None] + shift[:, None, None]
+
+
+def _conv(cin, cout, kernel, stride, bias, device):
+    return nn.Conv2d(
+        cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2,
+        bias=bias, device=device,
+    )
+
+
+def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2):
+    """Max pool with XLA "SAME" padding, which puts the odd pad at the end."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):  # F.pad order: W then H
+        out = math.ceil(size / stride)
+        total = max((out - 1) * stride + kernel - size, 0)
+        pads += [total // 2, total - total // 2]
+    x = F.pad(x, pads, value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
+
+
+class BottleneckV2(nn.Module):
+    """Pre-activation bottleneck unit (slim resnet_v2.bottleneck)."""
+
+    def __init__(self, depth_in: int, depth: int, depth_bottleneck: int,
+                 stride: int, device=None):
+        super().__init__()
+        self.stride = stride
+        self.preact = SlimBatchNorm(depth_in, device=device)
+        self.shortcut = (
+            None if depth == depth_in
+            else _conv(depth_in, depth, 1, stride, True, device)
+        )
+        self.conv1 = _conv(depth_in, depth_bottleneck, 1, 1, False, device)
+        self.conv1_bn = SlimBatchNorm(depth_bottleneck, device=device)
+        self.conv2 = _conv(depth_bottleneck, depth_bottleneck, 3, stride,
+                           False, device)
+        self.conv2_bn = SlimBatchNorm(depth_bottleneck, device=device)
+        self.conv3 = _conv(depth_bottleneck, depth, 1, 1, True, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        preact = F.relu(self.preact(x))
+        if self.shortcut is None:
+            shortcut = x[:, :, ::self.stride, ::self.stride]
+        else:
+            shortcut = self.shortcut(preact)
+        residual = F.relu(self.conv1_bn(self.conv1(preact)))
+        residual = F.relu(self.conv2_bn(self.conv2(residual)))
+        return shortcut + self.conv3(residual)
+
+
+class ResNetV2_50(nn.Module):
+    """resnet_v2_50 trunk: (N, H, W, 3) images in [-1, 1] -> (N, 2048)."""
+
+    def __init__(
+        self,
+        blocks: Sequence[Tuple[int, int, int]] = RESNET50_BLOCKS,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.conv1 = _conv(3, 64, 7, 2, True, device)
+        depth_in = 64
+        self.num_blocks = len(blocks)
+        for bi, (num_units, depth, depth_bottleneck) in enumerate(blocks, 1):
+            units = nn.ModuleDict()
+            for ui in range(1, num_units + 1):
+                last = ui == num_units and bi < len(blocks)
+                units[f"unit_{ui}"] = BottleneckV2(
+                    depth_in, depth, depth_bottleneck, 2 if last else 1,
+                    device=device,
+                )
+                depth_in = depth
+            self.add_module(f"block{bi}", units)
+        self.postnorm = SlimBatchNorm(depth_in, device=device)
+        self.init_weights(generator)
+
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        """flax defaults: lecun-normal kernels, zero biases."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                lecun_normal_(m.weight, generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        net = self.conv1(x.permute(0, 3, 1, 2))
+        net = max_pool_same(net)
+        for bi in range(1, self.num_blocks + 1):
+            for unit in getattr(self, f"block{bi}").values():
+                net = unit(net)
+        net = F.relu(self.postnorm(net))
+        return net.mean(dim=(2, 3))

@@ -1,0 +1,97 @@
+"""Builds the package's CUDA kernels with nvcc and loads them with ctypes.
+
+Each source under ``csrc/`` is compiled on first use into a shared library
+with a plain C interface, in ``_build/`` beside this file. The file name
+carries a hash of the source and the flags, so an edited source or flag
+rebuilds and an unchanged one is loaded from the cache. Nothing here runs
+at import time, and nothing falls back: a missing ``nvcc`` or a failed
+compile raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Dict, NamedTuple
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+NVCC_FLAGS = (
+    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+class BuildInfo(NamedTuple):
+    path: str        # the loaded shared library
+    built: bool      # False when it came from the cache
+    seconds: float   # build (or load) time
+
+
+class _Loaded(NamedTuple):
+    lib: ctypes.CDLL
+    info: BuildInfo
+
+
+_LOADED: Dict[str, _Loaded] = {}
+_LOCK = threading.Lock()
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda); "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def load_kernel_library(name: str) -> _Loaded:
+    """Build (or load from the cache) ``csrc/<name>.cu`` and return the
+    loaded library with its build info."""
+    with _LOCK:
+        if name in _LOADED:
+            return _LOADED[name]
+        t0 = time.perf_counter()
+        src = os.path.join(CSRC_DIR, name + ".cu")
+        with open(src, "rb") as f:
+            source = f.read()
+        key = hashlib.sha256(
+            source + "\0".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        lib_path = os.path.join(BUILD_DIR, f"lib{name}_{key}.so")
+        built = not os.path.exists(lib_path)
+        if built:
+            # Compile to a temporary name and rename, so a concurrent or
+            # interrupted build never leaves a half-written library.
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) building {src}:\n"
+                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, lib_path)
+        lib = ctypes.CDLL(lib_path)
+        info = BuildInfo(lib_path, built, time.perf_counter() - t0)
+        _LOADED[name] = _Loaded(lib, info)
+        return _LOADED[name]

@@ -1,0 +1,181 @@
+"""The port's windowed predictor (human_dynamics_tpu_torch.infer) against the
+JAX HmmrPredictor: the slice as a whole, on the same weights and frames.
+
+Tolerances: omegas, cams, shapes and poses at atol/rtol 1e-4 (narrow
+float32 model, sums in another order); joints, kps and verts at the
+fused-SMPL tolerance of tests/test_ops_pallas.py, 2e-4. The full ResNet-50
+image-mode run holds atol/rtol 1e-4 as well (measured ~1e-6).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from human_dynamics_tpu.core import synthetic_smpl_model as jax_smpl
+from human_dynamics_tpu.infer.predictor import HmmrPredictor as JaxPredictor
+from human_dynamics_tpu.infer.window import WindowSchedule as JaxSchedule
+from human_dynamics_tpu.models import HmmrModel as JaxModel
+from human_dynamics_tpu_torch.core import synthetic_smpl_model
+from human_dynamics_tpu_torch.infer import HmmrPredictor, WindowSchedule
+from human_dynamics_tpu_torch.models import HmmrModel
+from human_dynamics_tpu_torch.utils.weights import load_jax_variables
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMPL_KEYS = ("joints", "kps", "verts")
+
+
+def _assert_outputs_close(got, want, atol=1e-4):
+    assert set(got) == set(want)
+    for k in sorted(want):
+        tol = 2e-4 if k.split("_")[0] in SMPL_KEYS else atol
+        assert got[k].shape == np.shape(want[k]), k
+        np.testing.assert_allclose(
+            got[k], np.asarray(want[k]), atol=tol, rtol=1e-4, err_msg=k
+        )
+
+
+def _models(seed=0, example=None, **kw):
+    jm = JaxModel(**kw)
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(seed), example)
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    tm = HmmrModel(device="meta", **kw).to_empty(device="cpu")
+    return jm, variables, load_jax_variables(tm, variables)
+
+
+@pytest.fixture(scope="module")
+def phi_models():
+    return _models(feature_dim=64, example=jnp.zeros((1, 20, 64)))
+
+
+@pytest.mark.parametrize("use_fused_smpl", [False, True])
+@pytest.mark.parametrize("pred_mode", ["pred", "hal"])
+def test_phi_mode_matches_jax(phi_models, use_fused_smpl, pred_mode):
+    """N=37 frames: 3 window groups of B=2, the last one ragged; every output
+    key, including the *_delta heads in 'pred' mode."""
+    jm, variables, tm = phi_models
+    phi = np.random.RandomState(1).randn(37, 64).astype(np.float32)
+    kw = dict(batch_size=2, seq_length=20, pred_mode=pred_mode,
+              use_fused_smpl=use_fused_smpl)
+    want = JaxPredictor(
+        jm, variables, jax_smpl(num_verts=96, num_kps=25), **kw
+    ).predict_all_images(phi)
+    got = HmmrPredictor(
+        tm, None, synthetic_smpl_model(num_verts=96, num_kps=25),
+        groups_per_step=2, **kw,
+    ).predict_all_images(phi)
+    assert ("verts_delta" in got) == (pred_mode == "pred")
+    if pred_mode == "pred":
+        assert got["verts_delta"].shape == (37, 2, 96, 3)
+        assert got["omegas_delta"].shape == (37, 2, 85)
+    _assert_outputs_close(got, want)
+
+
+def test_image_mode_uint8_full_resnet_matches_jax():
+    """The whole slice: raw uint8 frames through ResNet-50 (encode chunks of
+    16, a ragged tail), the windows and the fused SMPL decode."""
+    jm, variables, tm = _models(
+        include_resnet=True, example=jnp.zeros((1, 1, 64, 64, 3))
+    )
+    raw = np.random.RandomState(2).randint(0, 256, (25, 64, 64, 3))
+    raw = raw.astype(np.uint8)
+    kw = dict(batch_size=2, seq_length=20, use_fused_smpl=True,
+              encode_chunk=16)
+    want = JaxPredictor(
+        jm, variables, jax_smpl(num_verts=48, num_kps=25), **kw
+    ).predict_all_images(raw)
+    got = HmmrPredictor(
+        tm, None, synthetic_smpl_model(num_verts=48, num_kps=25), **kw
+    ).predict_all_images(raw)
+    assert got["verts"].shape == (25, 48, 3)
+    assert got["verts_delta"].shape == (25, 2, 48, 3)
+    _assert_outputs_close(got, want)
+
+
+def test_groups_per_step_state_and_device_outputs(phi_models):
+    """Splitting the window groups over several model calls changes
+    nothing; as_numpy=False returns tensors on the device; a state_dict
+    passed as `state` is loaded."""
+    _, _, tm = phi_models
+    smpl = synthetic_smpl_model(num_verts=64, num_kps=19)
+    phi = np.random.RandomState(3).randn(70, 64).astype(np.float32)
+    one = HmmrPredictor(tm, None, smpl, batch_size=2, groups_per_step=8)
+    many = HmmrPredictor(tm, None, smpl, batch_size=2, groups_per_step=1)
+    a = one.predict_all_images(phi)
+    b = many.predict_all_images(torch.from_numpy(phi), as_numpy=False)
+    assert all(isinstance(v, torch.Tensor) for v in b.values())
+    for k in a:
+        np.testing.assert_allclose(b[k].numpy(), a[k], atol=1e-6, err_msg=k)
+    # `state` loads a state_dict into the model the predictor is given.
+    fresh = HmmrModel(feature_dim=64, device="meta").to_empty(device="cpu")
+    c = HmmrPredictor(fresh, tm.state_dict(), smpl, batch_size=2)
+    np.testing.assert_array_equal(c.predict_all_images(phi)["omegas"],
+                                  a["omegas"])
+
+
+def test_predictor_rejects_unported_options(phi_models):
+    _, _, tm = phi_models
+    smpl = synthetic_smpl_model(num_verts=32, num_kps=19)
+    for opt in ("bf16_encoder", "bf16_temporal", "int8_encoder",
+                "unroll_chunks"):
+        with pytest.raises(TypeError):
+            HmmrPredictor(tm, None, smpl, **{opt: True})
+    with pytest.raises(ValueError, match="Pred mode"):
+        HmmrPredictor(tm, None, smpl, pred_mode="nope")
+    with pytest.raises(ValueError, match="fov"):
+        HmmrPredictor(tm, None, smpl, seq_length=12)
+
+
+@pytest.mark.parametrize("n", [1, 8, 37, 64, 65, 480])
+def test_window_schedule_matches_jax(n):
+    kw = dict(num_frames=n, batch_size=8, seq_length=20, fov=13)
+    got, want = WindowSchedule(**kw), JaxSchedule(**kw)
+    for attr in ("margin", "good_frames", "count", "num_windows", "num_fill",
+                 "padded_length"):
+        assert getattr(got, attr) == getattr(want, attr), attr
+    np.testing.assert_array_equal(got.window_starts(), want.window_starts())
+    frames = np.arange(n * 2, dtype=np.float32).reshape(n, 2)
+    np.testing.assert_array_equal(got.pad(frames), want.pad(frames))
+
+
+def _run(code_or_args, cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run(
+        [sys.executable, *code_or_args], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port pulls in neither jax nor flax nor
+    the JAX package."""
+    code = (
+        "import pkgutil, sys, importlib, human_dynamics_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'human_dynamics_tpu'))\n"
+        "print(len(mods)); assert not bad, bad\n"
+    )
+    proc = _run(["-c", code], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15
+
+
+def test_chip_smoke_fails_without_gpu():
+    """chip_smoke.py exits non-zero and prints no result where there is no
+    CUDA device."""
+    proc = _run(["chip_smoke.py"], REPO)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert not any(json.loads(ln).get("ok") for ln in lines)
