@@ -1,21 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
 0. Device: a CUDA device must be present; print the card's name and power
    limit (nvidia-smi) and the torch and CUDA versions.
-1. Build: compile the fused SMPL blend+skin kernel (K1) from
-   human_dynamics_tpu_torch/ops/csrc with nvcc, or load it from the cache.
-2. K1 against its plain PyTorch version on the card, at V=6890 and
-   N = 1440, 21 and the predictor's own N, with matmul TF32 off: vertex
-   planes, verts, joints, j_posed, and one gradient.
-3. The predictor end to end: full-width HmmrModel(include_resnet=True)
+1. Build: compile the kernels of human_dynamics_tpu_torch/ops/csrc with
+   nvcc (one process per source, all started together), or load them from
+   the cache.
+2. K1 (fused SMPL blend+skin) against its plain PyTorch version on the
+   card, at V=6890 and N = 1440, 21 and the predictor's own N, with matmul
+   TF32 off: vertex planes, verts, joints, j_posed, and one gradient.
+3. The fp32 predictor end to end: full-width HmmrModel(include_resnet=True)
    with seeded random weights, a 480-frame clip of 224x224 uint8 frames,
    use_fused_smpl=True against use_fused_smpl=False; shapes, finiteness,
-   agreement, the kernel's launch count, and a smoke timing.
+   agreement and K1's launch count.
+4. The int8 trunk at 120 frames of 224x224, static scales calibrated on
+   32 frames: apply_int8_static(use_pallas=True), K2's path, with its
+   launch count, against use_pallas=False and both against the fp32 trunk.
+   Every int8 conv and pre-activation call of the use_pallas=False run and
+   every K2 chain of the use_pallas=True run is recorded and replayed:
+   the kernel against its plain version (int32 accumulators and outputs
+   equal; K2 within 0.1% differing elements and rel L2 1e-3), and timed
+   with CUDA events, kernel and plain version in turns; torch._int_mm is
+   timed beside the 1x1 stride-1 convs.
+5. The predictor in the JAX bench configuration (int8_encoder + 32
+   calibration frames + bf16_temporal + use_fused_smpl) and with
+   bf16_encoder, on the 480-frame clip: shapes, finiteness, omegas within
+   0.5 of the fp32 predictor, launch counts of K1, the int8 conv and the
+   pre-activation kernel.
+6. Smoke timing of the fp32, bf16_encoder and int8 bench predictors, in
+   turns. With --profile, a torch.profiler breakdown of one int8 clip.
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -30,10 +47,23 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_FRAMES = 480
+IMG = 224
+CHUNK = 120
+N_CALIB = 32
 SMPL_VERTS = 6890
 SMPL_KPS = 25
 TOL = {"verts": 2e-4, "joints": 2e-4, "j_posed": 1e-4}  # tests/test_ops_pallas.py
 GRAD_ATOL, GRAD_RTOL = 5e-3, 1e-3
+# K2 against its plain version: expected equal; at most 0.1% of the
+# elements may differ, with rel L2 at most 1e-3.
+K2_MAX_FRAC, K2_MAX_REL = 1e-3, 1e-3
+# The int8 trunk: use_pallas against the XLA path (the JAX test's bounds,
+# tests/test_resnet_int8.py:238-240), both against fp32.
+TRUNK_COS, TRUNK_REL, TRUNK_FP32_COS = 0.995, 0.05, 0.98
+OMEGA_TOL = 0.5  # tests/test_resnet_int8.py:113
+
+# Published peaks of one H100 SXM (dense): int8 tensor cores, FP32 pipe, HBM.
+INT8_OPS, FP32_OPS, HBM_BYTES = 1979e12, 67e12, 3.35e12
 
 
 def check(cond, msg):
@@ -51,7 +81,7 @@ def card_line():
 
 
 def max_abs(a, b):
-    return float((a - b).abs().max())
+    return float((a.float() - b.float()).abs().max())
 
 
 def cuda_ms(fn, iters=20):
@@ -68,6 +98,56 @@ def cuda_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(kernel, plain, k_iters=10, p_iters=2):
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, p_iters)
+    k1 = cuda_ms(kernel, k_iters)
+    k2 = cuda_ms(kernel, k_iters)
+    p2 = cuda_ms(plain, p_iters)
+    return min(k1, k2), min(p1, p2)
+
+
+def bound_ms(ops, rate, nbytes):
+    """The least time for `ops` at `rate` and `nbytes` at the HBM rate."""
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+class Recorder:
+    """Wraps functions of a module so that each call's arguments are kept."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.calls = module, names, []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            def wrapper(*args, _n=n, _fn=fn, **kwargs):
+                self.calls.append((_n, args, kwargs))
+                return _fn(*args, **kwargs)
+            setattr(self.module, n, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def build_all(load_kernel_libraries, names):
+    """Build every kernel library at once, one nvcc per source."""
+    t0 = time.perf_counter()
+    for name, loaded in zip(names, load_kernel_libraries(names)):
+        info = loaded.info
+        print(f"build {name}: {'built' if info.built else 'cache hit'}, "
+              f"ready {info.seconds:.2f} s after the start -> "
+              f"{os.path.relpath(info.path, HERE)}")
+    print(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_k1(torch, np, dev, smpl, consts, main_n):
@@ -130,7 +210,284 @@ def phase_k1(torch, np, dev, smpl, consts, main_n):
     p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
     print(f"K1 N={main_n} V={SMPL_VERTS}: kernel {k1:.4f}/{k2:.4f} ms, "
           f"plain {p1:.4f}/{p2:.4f} ms (CUDA events, 20 launches each)")
-    return plane_err, min(k1, k2), min(p1, p2)
+    # The function's own work, without the kernel's zero padding
+    # (coefficients 217 -> 224, joints 24 -> 32): per vertex and frame, the
+    # blend product and the template add, the 12 x 24 skinning weights and
+    # the 3x4 transform; bytes of the unpadded operands and the 3 planes.
+    n, v = main_n, SMPL_VERTS
+    cd, rc, nj = smpl_cuda.COEF_DIM, smpl_cuda.RT_CH, smpl_cuda.NUM_JOINTS
+    flops = n * v * (2 * 3 * cd + 3 + 2 * rc * nj + 18)
+    moved = 4 * (n * cd + rc * nj * n + 3 * cd * v + 3 * v + nj * v
+                 + 3 * n * v)
+    b_ms, b_by = bound_ms(flops, FP32_OPS, moved)
+    print(f"K1 bound: {flops / 1e9:.2f} GFLOP fp32, {b_ms:.4f} ms "
+          f"({b_by})")
+    return {"max_abs_err": plane_err, "ms": min(k1, k2),
+            "plain_ms": min(p1, p2), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def check_predictor_outputs(torch, out, what):
+    want_shapes = {
+        "verts": (N_FRAMES, SMPL_VERTS, 3),
+        "verts_delta": (N_FRAMES, 2, SMPL_VERTS, 3),
+        "kps": (N_FRAMES, SMPL_KPS, 2),
+        "omegas": (N_FRAMES, 85),
+    }
+    for k, shape in want_shapes.items():
+        check(tuple(out[k].shape) == shape,
+              f"{what}: {k} has shape {tuple(out[k].shape)}, want {shape}")
+    for k, v in out.items():
+        check(bool(torch.isfinite(v).all()), f"{what}: {k} is not finite")
+
+
+def conv_call_bound(torch, x, wt, stride, kw):
+    from human_dynamics_tpu_torch.ops import resnet_int8_cuda as K
+
+    ks, ho, wo = K.conv_geometry(x, wt, stride)
+    m, cout = x.shape[0] * ho * wo, wt.shape[0]
+    out_size = torch.empty((), dtype=K._OUT_DTYPE[kw["epilogue"]]).element_size()
+    ops = 2 * m * wt.shape[1] * cout
+    b = (nbytes(x, wt, kw.get("mul"), kw.get("add"), kw.get("residual"))
+         + m * cout * out_size)
+    return ops, b
+
+
+def int_mm_ms(torch, xq, wt, acc, total):
+    """Add torch._int_mm's time for a 1x1 stride-1 conv to `total`; the
+    library call is a yardstick only, so a refusal is printed, not raised."""
+    a2 = xq.reshape(-1, xq.shape[3])
+    try:
+        lib = cuda_ms(lambda: torch._int_mm(a2, wt.t()), 10)
+        same = torch.equal(torch._int_mm(a2, wt.t()).reshape(acc.shape), acc)
+    except RuntimeError as e:
+        print(f"  torch._int_mm refused {tuple(a2.shape)} x "
+              f"{tuple(wt.t().shape)}: {str(e).splitlines()[0]}")
+        return total
+    check(same, "torch._int_mm disagrees with the int32 accumulators")
+    return (total or 0.0) + lib
+
+
+def phase_int8_kernels(torch, model, frames):
+    """Phase 4: the int8 trunk, its recorded conv / preact / K2 calls."""
+    from human_dynamics_tpu_torch.infer import HmmrPredictor
+    from human_dynamics_tpu_torch.models import resnet_int8 as R
+    from human_dynamics_tpu_torch.ops import resnet_int8_cuda as K
+
+    x = HmmrPredictor._normalise(frames[:CHUNK])
+    calib = frames[-N_CALIB:].float() * (2.0 / 255.0) - 1.0
+    with torch.no_grad():
+        qp = R.prepare_int8_params(model.resnet_v2_50)
+        scales = R.calibrate_int8_scales(qp, calib)
+        plan_xla = R.prepare_int8_static(qp, scales)
+        plan_k2 = R.prepare_int8_static(qp, scales, use_pallas=True)
+
+        # K2's path, counted.
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        with Recorder(R, ["fused_block"]) as rec_k2:
+            phi_k2 = R.apply_int8_static(qp, scales, x, use_pallas=True)
+        torch.cuda.synchronize()
+        k2_launches = K.LAUNCHES[K.BLOCK]
+        print(f"int8 trunk use_pallas=True, {CHUNK} frames: kernel launches "
+              f"{dict(K.LAUNCHES)}; K2's {k2_launches} in "
+              f"{len(rec_k2.calls)} chains")
+        check(k2_launches > 0, "apply_int8_static(use_pallas=True) did not "
+              "launch K2")
+        with Recorder(R, ["conv_s8", "preact_quant"]) as rec_xla:
+            phi_xla = R.apply_int8_static(qp, scales, x)
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            phi_fp32 = model.resnet_v2_50(x)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+        torch.cuda.synchronize()
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a, b, dim=1).min())
+
+    rel = float((phi_k2 - phi_xla).norm() / phi_xla.norm())
+    c_k2, c_x, c_k2f = cos(phi_k2, phi_xla), cos(phi_xla, phi_fp32), cos(
+        phi_k2, phi_fp32)
+    print(f"int8 trunk: K2 vs XLA path min cos {c_k2:.6f} (>= {TRUNK_COS}), "
+          f"rel {rel:.3e} (<= {TRUNK_REL}); against fp32 (TF32 off): XLA "
+          f"path min cos {c_x:.6f}, K2 path {c_k2f:.6f} (>= {TRUNK_FP32_COS})")
+    check(c_k2 >= TRUNK_COS and rel <= TRUNK_REL, "K2 trunk vs XLA trunk")
+    check(c_x >= TRUNK_FP32_COS and c_k2f >= TRUNK_FP32_COS,
+          "int8 trunk vs fp32 trunk")
+
+    # Every conv and preact call of the XLA path, kernel against plain.
+    conv = {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
+    pre = {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
+    geoms = {}
+    n_conv = n_pre = 0
+    with torch.no_grad():
+        for name, args, kw in rec_xla.calls:
+            if name == "preact_quant":
+                n_pre += 1
+                xin, pa, pb, s = args
+                got = K.preact_quant(xin, pa, pb, s, **kw)
+                want = K.preact_quant_reference(xin, pa, pb, s, **kw)
+                check(torch.equal(got, want), f"preact call {n_pre} differs")
+                pre["err"] = max(pre["err"], max_abs(got, want))
+                k_ms, p_ms = in_turns(
+                    lambda: K.preact_quant(xin, pa, pb, s, **kw),
+                    lambda: K.preact_quant_reference(xin, pa, pb, s, **kw))
+                pre["ms"] += k_ms
+                pre["plain_ms"] += p_ms
+                pre["ops"] += 5 * xin.numel()
+                pre["bytes"] += nbytes(xin, pa, pb, s) + xin.numel()
+                continue
+            n_conv += 1
+            xq, wt, stride = args
+            acc = K.conv_s8(xq, wt, stride)
+            acc_ref = K.conv_s8_reference(xq, wt, stride)
+            check(torch.equal(acc, acc_ref),
+                  f"conv call {n_conv}: int32 accumulators differ")
+            got = K.conv_s8(xq, wt, stride, **kw)
+            want = K.epilogue_reference(acc_ref, **kw)
+            check(torch.equal(got, want),
+                  f"conv call {n_conv} ({kw['epilogue']}) differs")
+            conv["err"] = max(conv["err"], max_abs(acc, acc_ref),
+                              max_abs(got, want))
+            k_ms, p_ms = in_turns(
+                lambda: K.conv_s8(xq, wt, stride, **kw),
+                lambda: K.epilogue_reference(
+                    K.conv_s8_reference(xq, wt, stride), **kw))
+            ops, b = conv_call_bound(torch, xq, wt, stride, kw)
+            conv["ms"] += k_ms
+            conv["plain_ms"] += p_ms
+            conv["ops"] += ops
+            conv["bytes"] += b
+            ks = K.conv_geometry(xq, wt, stride)[0]
+            key = (xq.shape[1], xq.shape[3], wt.shape[0], ks, stride)
+            g = geoms.setdefault(key, {"n": 0, "ms": 0.0, "plain_ms": 0.0,
+                                       "ops": 0, "lib_ms": None})
+            g["n"] += 1
+            g["ms"] += k_ms
+            g["plain_ms"] += p_ms
+            g["ops"] += ops
+            if ks == 1 and stride == 1:
+                g["lib_ms"] = int_mm_ms(torch, xq, wt, acc, g["lib_ms"])
+    print(f"int8 conv: {n_conv} calls of the XLA path replayed; int32 "
+          f"accumulators and epilogue outputs equal to the plain version "
+          f"(max abs {conv['err']:.3e})")
+    # 1x1 stride 2 (a strided projection shortcut) is not on this trunk;
+    # checked on each block's input map all the same.
+    gen = torch.Generator(device=frames.device).manual_seed(2)
+    with torch.no_grad():
+        for h, cin in ((IMG // 4, 256), (IMG // 8, 512), (IMG // 16, 1024)):
+            xq = torch.randint(-127, 128, (CHUNK, h, h, cin), generator=gen,
+                               device=frames.device, dtype=torch.int8)
+            wt = torch.randint(-127, 128, (2 * cin, cin), generator=gen,
+                               device=frames.device, dtype=torch.int8)
+            check(torch.equal(K.conv_s8(xq, wt, 2),
+                              K.conv_s8_reference(xq, wt, 2)),
+                  f"int8 conv 1x1/s2 {h}x{h} {cin}: accumulators differ")
+    print("int8 conv 1x1/s2 on the block1-3 input maps: accumulators equal")
+    for (h, cin, cout, ks, s), g in sorted(geoms.items()):
+        lib = ("-" if g["lib_ms"] is None
+               else f"{g['lib_ms']:.4f} ms (torch._int_mm, int32 out)")
+        print(f"  conv {ks}x{ks}/s{s} {h}x{h} {cin}->{cout} x{g['n']}: "
+              f"kernel {g['ms']:.4f} ms = {g['ops'] / g['ms'] / 1e9:.1f} "
+              f"TOP/s, plain {g['plain_ms']:.4f} ms, library {lib}")
+    c_bound, c_by = bound_ms(conv["ops"], INT8_OPS, conv["bytes"])
+    print(f"int8 conv, all {n_conv} calls of one {CHUNK}-frame chunk: "
+          f"kernel {conv['ms']:.4f} ms, plain {conv['plain_ms']:.4f} ms, "
+          f"{conv['ops'] / 1e12:.3f} TOP, bound {c_bound:.4f} ms ({c_by})")
+    print(f"preact: {n_pre} calls: kernel {pre['ms']:.4f} ms, plain "
+          f"{pre['plain_ms']:.4f} ms, equal")
+    p_bound, p_by = bound_ms(pre["ops"], FP32_OPS, pre["bytes"])
+
+    # Every K2 chain of the use_pallas=True path.
+    k2 = {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
+    with torch.no_grad():
+        for _, args, kw in rec_k2.calls:
+            xin, units = args
+            got = K.fused_block(xin, units, **kw)
+            want = K.fused_block_reference(xin, units, **kw)
+            frac = float((got != want).float().mean())
+            rel = float((got.float() - want.float()).norm()
+                        / want.float().norm())
+            err = max_abs(got, want)
+            k2["err"] = max(k2["err"], err)
+            k_ms, p_ms = in_turns(lambda: K.fused_block(xin, units, **kw),
+                                  lambda: K.fused_block_reference(
+                                      xin, units, **kw))
+            m = xin.shape[0] * kw["h"] * kw["w"]
+            ops = sum(2 * m * (u["w1"].numel() + u["w2"].numel()
+                               + u["w3"].numel()
+                               + (u["wsc"].numel() if "wsc" in u else 0))
+                      for u in units)
+            b = nbytes(xin, *[t for u in units for t in u.values()])
+            b += m * units[-1]["w3"].shape[0] * 2
+            u_ms, u_by = bound_ms(ops, INT8_OPS, b)
+            print(f"K2 {kw['h']}x{kw['w']} x{len(units)} units, Cin "
+                  f"{xin.shape[-1]}, Cb {units[0]['w1'].shape[0]}: differing "
+                  f"{frac:.2e} (<= {K2_MAX_FRAC}), rel {rel:.2e} (<= "
+                  f"{K2_MAX_REL}), max abs {err:.3e}; kernel {k_ms:.4f} ms "
+                  f"= {ops / k_ms / 1e9:.1f} TOP/s, plain {p_ms:.4f} ms, "
+                  f"bound {u_ms:.4f} ms ({u_by}, {ops / 1e12:.3f} TOP)")
+            check(frac <= K2_MAX_FRAC and rel <= K2_MAX_REL,
+                  f"K2 at {kw['h']}x{kw['w']} differs from its plain version")
+            k2["ms"] += k_ms
+            k2["plain_ms"] += p_ms
+            k2["ops"] += ops
+            k2["bytes"] += b
+    k2_bound, k2_by = bound_ms(k2["ops"], INT8_OPS, k2["bytes"])
+    print(f"K2, all {len(rec_k2.calls)} chains of one chunk: kernel "
+          f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, bound "
+          f"{k2_bound:.4f} ms ({k2_by})")
+
+    # The trunks, one chunk each.
+    with torch.no_grad():
+        t_xla = cuda_ms(lambda: R.run_int8_static(plan_xla, x), 5)
+        t_k2 = cuda_ms(lambda: R.run_int8_static(plan_k2, x), 5)
+        t_fp32 = cuda_ms(lambda: model.resnet_v2_50(x), 5)
+    print(f"trunk, {CHUNK} frames of {IMG}x{IMG} (CUDA events, 5 runs): int8 "
+          f"XLA path {t_xla:.3f} ms, int8 K2 path {t_k2:.3f} ms, fp32 "
+          f"(cuDNN TF32 {torch.backends.cudnn.allow_tf32}) {t_fp32:.3f} ms; "
+          f"int8 trunk bound {c_bound:.3f} ms ({c_by}, its convs)")
+    return {
+        "conv": {"max_abs_err": conv["err"], "ms": conv["ms"],
+                 "plain_ms": conv["plain_ms"], "bound_ms": c_bound,
+                 "bound_by": c_by, "library_ms": None},
+        "preact": {"max_abs_err": pre["err"], "ms": pre["ms"],
+                   "plain_ms": pre["plain_ms"], "bound_ms": p_bound,
+                   "bound_by": p_by, "library_ms": None},
+        "k2": {"launches": k2_launches, "max_abs_err": k2["err"],
+               "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+               "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+    }
+
+
+def profile_clip(torch, pred, frames):
+    from torch.profiler import ProfilerActivity, profile
+
+    pred.predict_all_images(frames, as_numpy=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred.predict_all_images(frames, as_numpy=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device kernels only: the operator rows repeat their kernels' time.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    check(total <= wall * 1e3, f"profile: kernel time {total:.2f} ms exceeds "
+          f"the traced wall {wall * 1e3:.2f} ms; events are counted twice")
+    print(f"profile, int8 bench config, one clip: wall {wall * 1e3:.2f} ms "
+          f"(traced), kernel time {total:.2f} ms, device idle "
+          f"{(1 - total / (wall * 1e3)) * 100:.1f}% of the wall")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}")
 
 
 def main():
@@ -149,8 +506,9 @@ def main():
     from human_dynamics_tpu_torch.core import synthetic_smpl_model
     from human_dynamics_tpu_torch.infer import HmmrPredictor, WindowSchedule
     from human_dynamics_tpu_torch.models import HmmrModel
+    from human_dynamics_tpu_torch.ops import resnet_int8_cuda as K
     from human_dynamics_tpu_torch.ops import smpl_cuda
-    from human_dynamics_tpu_torch.ops._build import load_kernel_library
+    from human_dynamics_tpu_torch.ops._build import load_kernel_libraries
 
     card = card_line()
     dev = torch.device("cuda", 0)
@@ -163,9 +521,7 @@ def main():
           f"{torch.backends.cudnn.allow_tf32}")
 
     # Phase 1: build.
-    info = load_kernel_library(smpl_cuda.KERNEL_NAME).info
-    print(f"K1 build: {'built' if info.built else 'cache hit'} in "
-          f"{info.seconds:.2f} s -> {os.path.relpath(info.path, HERE)}")
+    build_all(load_kernel_libraries, [smpl_cuda.KERNEL_NAME, K.KERNEL_NAME])
 
     # Phase 2: K1 against its plain version, TF32 off for the plain products.
     smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS,
@@ -180,14 +536,13 @@ def main():
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        k1_err, k1_ms, k1_plain_ms = phase_k1(
-            torch, np, dev, smpl, consts, main_n)
+        k1 = phase_k1(torch, np, dev, smpl, consts, main_n)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
 
-    # Phase 3: the predictor end to end.
+    # Phase 3: the fp32 predictor end to end.
     gen = torch.Generator(device=dev).manual_seed(1)
-    frames = torch.randint(0, 256, (N_FRAMES, 224, 224, 3), dtype=torch.uint8,
+    frames = torch.randint(0, 256, (N_FRAMES, IMG, IMG, 3), dtype=torch.uint8,
                            device=dev, generator=gen)
     kw = dict(batch_size=b, seq_length=t, device=dev)
     fused = HmmrPredictor(model, None, smpl, use_fused_smpl=True, **kw)
@@ -197,23 +552,12 @@ def main():
     out = fused.predict_all_images(frames, as_numpy=False)
     torch.cuda.synchronize()
     launches = smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME]
-    print(f"predictor (fused): K1 launched {launches} time(s) for "
+    print(f"predictor fp32 (fused): K1 launched {launches} time(s) for "
           f"{N_FRAMES} frames")
-    check(launches > 0, "the main path did not launch K1")
-
-    want_shapes = {
-        "verts": (N_FRAMES, SMPL_VERTS, 3),
-        "verts_delta": (N_FRAMES, 2, SMPL_VERTS, 3),
-        "kps": (N_FRAMES, SMPL_KPS, 2),
-        "omegas": (N_FRAMES, 85),
-    }
+    check(launches > 0, "the fp32 predictor did not launch K1")
     print("predictor shapes: " + ", ".join(
         f"{k} {tuple(v.shape)}" for k, v in sorted(out.items())))
-    for k, shape in want_shapes.items():
-        check(tuple(out[k].shape) == shape,
-              f"{k} has shape {tuple(out[k].shape)}, want {shape}")
-    for k, v in out.items():
-        check(bool(torch.isfinite(v).all()), f"{k} has non-finite values")
+    check_predictor_outputs(torch, out, "fp32 predictor")
 
     ref = unfused.predict_all_images(frames, as_numpy=False)
     torch.cuda.synchronize()
@@ -229,36 +573,83 @@ def main():
         print(f"predictor fused vs unfused: {k} max abs diff {err:.3e} "
               f"(tol 2e-4)")
         check(err <= 2e-4, f"{k} fused vs unfused differs by {err}")
-    del out, ref
+    omegas_fp32 = out["omegas"]
+    del out, ref, unfused
 
-    # Smoke timing, in turns, after the runs above warmed everything up.
-    times = {"fused": [], "unfused": []}
-    for name in ("fused", "unfused", "unfused", "fused", "fused", "unfused"):
-        pred = fused if name == "fused" else unfused
+    # Phase 4: the int8 trunk and its kernels.
+    int8 = phase_int8_kernels(torch, model, frames)
+
+    # Phase 5: the predictor in the bench configuration, and bf16_encoder.
+    calib = torch.randint(0, 256, (N_CALIB, IMG, IMG, 3), dtype=torch.uint8,
+                          device=dev, generator=gen)
+    bench = HmmrPredictor(model, None, smpl, int8_encoder=True,
+                          int8_calibration=calib, bf16_temporal=True,
+                          use_fused_smpl=True, **kw)
+    bf16 = HmmrPredictor(model, None, smpl, bf16_encoder=True,
+                         use_fused_smpl=True, **kw)
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME] = 0
+    out = bench.predict_all_images(frames, as_numpy=False)
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES, **smpl_cuda.LAUNCHES)
+    print(f"predictor bench config (int8 + calibration + bf16_temporal + "
+          f"fused SMPL): launches {counts}")
+    for name in (K.CONV, K.PREACT, smpl_cuda.KERNEL_NAME):
+        check(counts[name] > 0, f"the bench-config predictor did not launch "
+              f"{name}")
+    check_predictor_outputs(torch, out, "bench-config predictor")
+    for name, o in (("bench config", out),
+                    ("bf16_encoder", bf16.predict_all_images(
+                        frames, as_numpy=False))):
+        check_predictor_outputs(torch, o, name)
+        err = max_abs(o["omegas"], omegas_fp32)
+        print(f"predictor {name}: omegas max abs diff to fp32 {err:.4f} "
+              f"(tol {OMEGA_TOL})")
+        check(err < OMEGA_TOL, f"{name} omegas differ from fp32 by {err}")
+    del out
+
+    # Phase 6: smoke timing, in turns.
+    preds = {"fp32": fused, "bf16_encoder": bf16, "int8_bench": bench}
+    times = {name: [] for name in preds}
+    order = ["fp32", "bf16_encoder", "int8_bench"]
+    for name in order + order[::-1] + order:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pred.predict_all_images(frames, as_numpy=False)
+        preds[name].predict_all_images(frames, as_numpy=False)
         torch.cuda.synchronize()
         times[name].append(time.perf_counter() - t0)
     for name, ts in times.items():
         med = float(np.median(ts))
-        print(f"smoke timing (not a benchmark) [{card}]: predictor "
-              f"use_fused_smpl={name == 'fused'}: {med * 1e3:.2f} ms/clip of "
-              f"{N_FRAMES} frames, {N_FRAMES / med:.1f} frames/s (median of "
-              f"{len(ts)}; all ms {[round(x * 1e3, 2) for x in ts]})")
+        print(f"smoke timing (not a benchmark) [{card}]: predictor {name}: "
+              f"{med * 1e3:.2f} ms/clip of {N_FRAMES} frames, "
+              f"{N_FRAMES / med:.1f} frames/s (median of {len(ts)}; all ms "
+              f"{[round(x * 1e3, 2) for x in ts]})")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    if "--profile" in sys.argv[1:]:
+        profile_clip(torch, bench, frames)
 
-    print(json.dumps({"kernels": [{
-        "name": smpl_cuda.KERNEL_NAME,
-        "route": "cuda",
-        "source": "human_dynamics_tpu_torch/ops/csrc/smpl_blend_skin.cu",
-        "replaces": "human_dynamics_tpu/ops/smpl_pallas.py:108",
-        "launches": launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": k1_plain_ms,
-    }]}))
+    csrc = "human_dynamics_tpu_torch/ops/csrc/"
+    kernels = [
+        dict(name=smpl_cuda.KERNEL_NAME, source=csrc + "smpl_blend_skin.cu",
+             replaces="human_dynamics_tpu/ops/smpl_pallas.py:108",
+             launches=launches, **k1),
+        dict(name=K.BLOCK, source=csrc + "resnet_int8.cu",
+             replaces="human_dynamics_tpu/ops/resnet_int8_pallas.py:151",
+             **int8["k2"]),
+        dict(name=K.CONV, source=csrc + "resnet_int8.cu",
+             replaces="human_dynamics_tpu/models/resnet_int8.py:262",
+             launches=counts[K.CONV], **int8["conv"]),
+        dict(name=K.PREACT, source=csrc + "resnet_int8.cu",
+             replaces="human_dynamics_tpu/models/resnet_int8.py:578",
+             launches=counts[K.PREACT], **int8["preact"]),
+    ]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {k: dict(kern, route="cuda")[k] for k in keys} for kern in kernels
+    ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -4,9 +4,14 @@ Counterpart of ``human_dynamics_tpu/infer/predictor.py``, inference only:
 
 - Image mode runs ResNet-50 once per frame, in chunks of ``encode_chunk``
   frames; raw uint8 frames are normalised on the device as x*(2/255)-1.
+  The encoder is fp32, bf16 (``bf16_encoder``) or int8
+  (``int8_encoder``, models/resnet_int8: static scales when
+  ``int8_calibration`` frames are given, else dynamic ones).
 - The per-frame features are zero-padded by the window schedule and cut
   into windows of T frames, B windows per group, ``groups_per_step``
-  groups per model call.
+  groups per model call; ``bf16_temporal`` runs that model (temporal
+  encoder, IEF heads, hallucinator) in bf16 and casts the omegas back to
+  f32.
 - Only each window's good centre frames are kept, before the SMPL decode.
 - The present head and the delta heads are decoded in one stacked SMPL
   call; the delta heads are projected with the present camera.
@@ -17,6 +22,8 @@ Counterpart of ``human_dynamics_tpu/infer/predictor.py``, inference only:
 
 from __future__ import annotations
 
+import copy
+import warnings
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -27,9 +34,41 @@ from human_dynamics_tpu_torch.core.smpl import SmplModel
 from human_dynamics_tpu_torch.infer.window import WindowSchedule
 from human_dynamics_tpu_torch.models.hmmr import HmmrModel
 from human_dynamics_tpu_torch.models.omega import compute_smpl, split_omega
+from human_dynamics_tpu_torch.models.resnet_int8 import (
+    apply_int8,
+    calibrate_int8_scales,
+    kmajor_weights,
+    prepare_int8_params,
+    prepare_int8_static,
+    run_int8_static,
+)
 from human_dynamics_tpu_torch.ops.smpl_cuda import prepare_fused_constants
+from human_dynamics_tpu_torch.utils.precision import to_bf16
 
+_TWO_OVER_255 = float(np.float32(2.0 / 255.0))
 _KEYS = ("cams", "joints", "kps", "poses", "shapes", "verts", "omegas")
+
+
+def resolve_device(device) -> torch.device:
+    """``device``, or the first CUDA device when it is None. Without a CUDA
+    device, None raises: the CPU runs only when asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def _without_resnet(model: HmmrModel) -> HmmrModel:
+    """A deep copy of ``model`` without its ResNet (the window tail)."""
+    resnet = model._modules.pop("resnet_v2_50", None)
+    try:
+        return copy.deepcopy(model)
+    finally:
+        if resnet is not None:
+            model._modules["resnet_v2_50"] = resnet
 
 
 class HmmrPredictor:
@@ -45,10 +84,23 @@ class HmmrPredictor:
         pred_mode: 'pred' (temporal encoder) or 'hal' (hallucinator).
         use_fused_smpl: decode with the fused blend+skin op (the CUDA
             kernel on a GPU).
+        bf16_encoder: run the ResNet in bf16 (a bf16 copy of it); phi is
+            cast to f32.
+        int8_encoder: run the int8 ResNet (models/resnet_int8); takes
+            precedence over ``bf16_encoder``. The weights are quantised
+            once here, and the model's fp32 ResNet is not moved to the
+            device.
+        int8_calibration: frames (uint8, or [-1, 1] floats) to calibrate
+            static activation scales on; without them the int8 encoder
+            uses dynamic scales and warns.
+        bf16_temporal: run the window model (temporal encoder, IEF heads,
+            hallucinator) in bf16, from a bf16 copy made once; omegas are
+            cast to f32 before the SMPL decode.
         groups_per_step: window groups per model call (bounds memory).
         encode_chunk: frames per ResNet call in image mode.
-        device: where to run; None keeps the model's device. The model
-            and the SMPL constants are moved there.
+        device: where to run; None means the CUDA device, and raises
+            where there is none. The model and the SMPL constants are
+            moved there.
     """
 
     def __init__(
@@ -60,6 +112,10 @@ class HmmrPredictor:
         seq_length: int = 20,
         pred_mode: str = "pred",
         use_fused_smpl: bool = False,
+        bf16_encoder: bool = False,
+        int8_encoder: bool = False,
+        int8_calibration=None,
+        bf16_temporal: bool = False,
         groups_per_step: int = 8,
         encode_chunk: int = 120,
         device=None,
@@ -75,25 +131,118 @@ class HmmrPredictor:
             raise ValueError("groups_per_step and encode_chunk must be >= 1")
         if state is not None:
             model.load_state_dict(state)
-        if device is None:
-            device = model.mean_param.device
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
-        self.smpl = smpl.to(self.device)
+        self.device = resolve_device(device)
         self.batch_size = batch_size
         self.seq_length = seq_length
         self.pred_mode = pred_mode
         self.use_fused_smpl = use_fused_smpl
+        self.int8_encoder = int8_encoder
+        self.bf16_encoder = bf16_encoder and not int8_encoder
+        self.bf16_temporal = bf16_temporal
         self.groups_per_step = groups_per_step
         self.encode_chunk = encode_chunk
         self.delta_ts = tuple(sorted(model.delta_t_values))
+
+        resnet = getattr(model, "resnet_v2_50", None)
+        # The fp32 ResNet goes to the device only when it is the encoder.
+        for child in model.children():
+            if child is not resnet or not (int8_encoder or bf16_encoder):
+                child.to(self.device)
+        for p in model._parameters.values():
+            p.data = p.data.to(self.device)
+        self.model = model.eval()
+        self.smpl = smpl.to(self.device)
         self.fused_constants = (
             prepare_fused_constants(self.smpl) if use_fused_smpl else None
         )
 
+        # Encoder.
+        if int8_encoder and int8_calibration is None:
+            warnings.warn(
+                "int8_encoder WITHOUT int8_calibration uses dynamic "
+                "activation scales: every requantisation needs a max|x| "
+                "reduction over the whole tensor and a separate "
+                "quantisation pass, where static scales fuse into the conv "
+                "epilogue. Pass a calibration batch for the static-scale "
+                "path.",
+                RuntimeWarning, stacklevel=2,
+            )
+        self._encoder = None if int8_encoder else resnet
+        self._int8_plan = self._int8_qp = self._int8_wt = None
+        if resnet is not None and int8_encoder:
+            self._init_int8(resnet, int8_calibration)
+        elif resnet is not None and self.bf16_encoder:
+            self._encoder = to_bf16(copy.deepcopy(resnet).to(self.device))
+
+        # Window tail, as a bf16 copy made once for bf16_temporal.
+        self._tail = (
+            to_bf16(_without_resnet(self.model)) if bf16_temporal
+            else self.model
+        )
+
+    @torch.no_grad()
+    def _init_int8(self, resnet, calibration):
+        """Quantise once; with calibration frames, observe static scales."""
+        qp = {k: v.to(self.device)
+              for k, v in prepare_int8_params(resnet).items()}
+        scales = None
+        if calibration is not None:
+            calib = torch.as_tensor(calibration, device=self.device)
+            if calib.dtype == torch.uint8:
+                # A separate multiply and add, as the JAX predictor's eager
+                # normalisation of its calibration frames.
+                calib = calib.to(torch.float32) * (2.0 / 255.0) - 1.0
+            scales = calibrate_int8_scales(qp, calib.to(torch.float32))
+        self.set_int8_params(qp, scales)
+
+    @torch.no_grad()
+    def set_int8_params(self, qp, scales=None):
+        """Run the int8 encoder on these quantised weights (the port's
+        ``prepare_int8_params`` keys, e.g. from ``utils.weights.load_jax_int8``)
+        with static ``scales``, or dynamic scales when None."""
+        if not self.int8_encoder:
+            raise ValueError("set_int8_params needs int8_encoder=True")
+        qp = {k: v.to(self.device) for k, v in qp.items()}
+        if scales is None:
+            self._int8_plan = None
+            self._int8_qp, self._int8_wt = qp, kmajor_weights(qp)
+        else:
+            scales = {k: v.to(self.device) for k, v in scales.items()}
+            self._int8_qp = self._int8_wt = None
+            self._int8_plan = prepare_int8_static(qp, scales)
+
     # ------------------------------------------------------------------
     # Feature extraction (image mode)
     # ------------------------------------------------------------------
+
+    @staticmethod
+    def _normalise(frames: torch.Tensor) -> torch.Tensor:
+        """uint8 -> x*(2/255) - 1 rounded once to f32: XLA contracts it into
+        one fused multiply-add in the JAX predictor's program (float64 is
+        exact for the product and the sum here), and the rounding matters
+        once the encoder casts to bf16."""
+        if frames.dtype == torch.uint8:
+            return (frames.to(torch.float64) * _TWO_OVER_255 - 1.0).to(
+                torch.float32)
+        return frames.to(torch.float32)
+
+    def _encode_chunk(self, chunk: torch.Tensor) -> torch.Tensor:
+        """(M, H, W, 3) frames -> (M, 2048) f32 phi."""
+        if self._int8_plan is not None:
+            return run_int8_static(self._int8_plan, self._normalise(chunk))
+        if self._int8_qp is not None:
+            # Dynamic scales are per chunk, so the tail chunk is padded with
+            # zero frames to the full chunk, as the JAX predictor pads it.
+            m = chunk.shape[0]
+            chunk = F.pad(chunk, (0, 0, 0, 0, 0, 0, 0, self.encode_chunk - m))
+            return apply_int8(self._int8_qp, self._normalise(chunk),
+                              _wt=self._int8_wt)[:m]
+        if self._encoder is None:
+            raise ValueError("Model built without resnet but got image input")
+        x = self._normalise(chunk)
+        if self.bf16_encoder:
+            return self._encoder(x.to(torch.bfloat16)).float()
+        return self._encoder(x)
 
     @torch.inference_mode()
     def encode_frames(self, images) -> torch.Tensor:
@@ -103,15 +252,10 @@ class HmmrPredictor:
         x*(2/255)-1; anything else is taken as [-1, 1] floats.
         """
         images = torch.as_tensor(images, device=self.device)
-        phis = []
-        for i in range(0, len(images), self.encode_chunk):
-            chunk = images[i:i + self.encode_chunk]
-            if chunk.dtype == torch.uint8:
-                chunk = chunk.to(torch.float32) * (2.0 / 255.0) - 1.0
-            else:
-                chunk = chunk.to(torch.float32)
-            phis.append(self.model.encode_images(chunk[None])[0])
-        return torch.cat(phis)
+        return torch.cat([
+            self._encode_chunk(images[i:i + self.encode_chunk])
+            for i in range(0, len(images), self.encode_chunk)
+        ])
 
     # ------------------------------------------------------------------
     # Windowed prediction
@@ -125,12 +269,18 @@ class HmmrPredictor:
         # Window w starts at frame w*g of the padded buffer.
         win = (ids[:, None] * b + torch.arange(b, device=dev)).reshape(-1)
         idx = win[:, None] * g + torch.arange(t, device=dev)
-        out = self.model(phi_padded[idx])               # (S*B, T, C) windows
+        windows = phi_padded[idx]                       # (S*B, T, C)
+        if self.bf16_temporal:
+            windows = windows.to(torch.bfloat16)
+        out = self._tail(windows)
 
         if self.pred_mode == "hal":
             present, deltas = out.omega_hal, out.omegas_hal_delta
         else:
             present, deltas = out.omega_pred, out.omegas_delta
+        # bf16_temporal: omegas back to f32 before the SMPL decode.
+        present = present.float()
+        deltas = {dt: v.float() for dt, v in deltas.items()}
 
         # Keep only the full-fov centre frames BEFORE the SMPL decode.
         present = present[:, margin:margin + g]

@@ -4,8 +4,10 @@ Counterpart of ``human_dynamics_tpu/models/temporal.py``. Each residual
 block is GN -> relu -> conv[3] -> GN -> relu -> conv[3] -> +skip over
 (B, T, C) features. The flax GroupNorm normalises over (T, channels of the
 group); torch's GroupNorm on (B, C, T) with 32 contiguous channel groups
-computes the same statistics (eps 1e-6). The public layout stays (B, T, C);
-it is permuted to (B, C, T) once for the whole stack.
+computes the same statistics (eps 1e-6). As in flax, the statistics and the
+normalisation are f32 whatever the input dtype, and the result takes the
+input's dtype (bf16 under ``bf16_temporal``). The public layout stays
+(B, T, C); it is permuted to (B, C, T) once for the whole stack.
 
 Receptive field: fov = 4 * num_layers + 1.
 """
@@ -19,6 +21,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from human_dynamics_tpu_torch.models.init import lecun_normal_, xavier_uniform_
+
+
+def _group_norm(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    """``gn`` computed in f32, returned in x's dtype."""
+    return F.group_norm(
+        x.float(), gn.num_groups, gn.weight.float(), gn.bias.float(), gn.eps
+    ).to(x.dtype)
 
 
 class TemporalBlockFC2GN(nn.Module):
@@ -42,8 +51,8 @@ class TemporalBlockFC2GN(nn.Module):
             nn.init.zeros_(conv.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        net = self.conv1(F.relu(self.gn1(x)))
-        net = self.conv2(F.relu(self.gn2(net)))
+        net = self.conv1(F.relu(_group_norm(self.gn1, x)))
+        net = self.conv2(F.relu(_group_norm(self.gn2, net)))
         return net + x
 
 

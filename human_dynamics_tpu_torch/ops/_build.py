@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple, Sequence
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -61,37 +61,54 @@ def find_nvcc() -> str:
     )
 
 
-def load_kernel_library(name: str) -> _Loaded:
-    """Build (or load from the cache) ``csrc/<name>.cu`` and return the
-    loaded library with its build info."""
+def load_kernel_libraries(names: Sequence[str]) -> List[_Loaded]:
+    """Build (or load from the cache) ``csrc/<name>.cu`` for every name and
+    return the loaded libraries with their build info. The nvcc processes
+    of the libraries not yet built all run at once."""
     with _LOCK:
-        if name in _LOADED:
-            return _LOADED[name]
         t0 = time.perf_counter()
-        src = os.path.join(CSRC_DIR, name + ".cu")
-        with open(src, "rb") as f:
-            source = f.read()
-        key = hashlib.sha256(
-            source + "\0".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
         os.makedirs(BUILD_DIR, exist_ok=True)
-        lib_path = os.path.join(BUILD_DIR, f"lib{name}_{key}.so")
-        built = not os.path.exists(lib_path)
-        if built:
+        jobs = {}  # name -> (lib_path, tmp, cmd, proc); proc None on a hit
+        for name in names:
+            if name in _LOADED or name in jobs:
+                continue
+            src = os.path.join(CSRC_DIR, name + ".cu")
+            with open(src, "rb") as f:
+                source = f.read()
+            key = hashlib.sha256(
+                source + "\0".join(NVCC_FLAGS).encode()
+            ).hexdigest()[:16]
+            lib_path = os.path.join(BUILD_DIR, f"lib{name}_{key}.so")
+            if os.path.exists(lib_path):
+                jobs[name] = (lib_path, None, None, None)
+                continue
             # Compile to a temporary name and rename, so a concurrent or
             # interrupted build never leaves a half-written library.
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {src}:\n"
-                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(lib_path)
-        info = BuildInfo(lib_path, built, time.perf_counter() - t0)
-        _LOADED[name] = _Loaded(lib, info)
-        return _LOADED[name]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (lib_path, tmp, cmd, proc)
+        failures = []
+        for name, (lib_path, tmp, cmd, proc) in jobs.items():
+            if proc is not None:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    os.unlink(tmp)
+                    failures.append(f"nvcc failed ({proc.returncode}):\n"
+                                    f"{' '.join(cmd)}\n{log}")
+                    continue
+                os.replace(tmp, lib_path)
+            info = BuildInfo(lib_path, proc is not None,
+                             time.perf_counter() - t0)
+            _LOADED[name] = _Loaded(ctypes.CDLL(lib_path), info)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        return [_LOADED[name] for name in names]
+
+
+def load_kernel_library(name: str) -> _Loaded:
+    """Build (or load from the cache) ``csrc/<name>.cu`` and return the
+    loaded library with its build info."""
+    return load_kernel_libraries([name])[0]

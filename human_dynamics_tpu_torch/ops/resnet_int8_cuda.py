@@ -1,0 +1,479 @@
+"""int8 ResNet kernels: the int8 convolution, the pre-activation quantiser
+and K2, the chained int8 bottleneck block, with their plain versions.
+
+Counterpart of ``human_dynamics_tpu/ops/resnet_int8_pallas.py`` (K2) and of
+the XLA integer convolutions of ``human_dynamics_tpu/models/resnet_int8.py``
+(``_conv_s8`` with its requant / dequant epilogues). The CUDA source is
+``csrc/resnet_int8.cu``:
+
+- ``conv_s8``: NHWC int8 x (Cout, K) int8 weights -> int32 accumulators,
+  with a per-output-channel f32 epilogue fused in (see ``EPILOGUES``).
+- ``preact_quant``: bf16 residual stream -> folded BN + ReLU -> int8.
+- ``fused_block``: K2, a chain of stride-1 pre-activation bottleneck units
+  with static scales: one pre-activation and three or four conv kernel
+  launches per unit, the unit's intermediates through device memory.
+
+Weights are k-major, (Cout, K) with K = kh*kw*Cin contiguous in the
+flattened HWIO order: the transpose of the JAX package's (K, Cout) GEMM
+operand (``hwio_to_kmajor``), which is what the tensor-core fragments read.
+
+Contraction: the JAX K2 kernel's four multiply-adds (preact, both
+requants, the shortcut dequant, the residual) are fused multiply-adds, as
+XLA contracts them inside the kernel; the XLA path's epilogues are a
+separate multiply and add. The CUDA source names every rounding, and the
+plain versions emulate a fused multiply-add through float64.
+
+Which version runs is decided by the device of the tensors: CUDA tensors
+launch the kernels, CPU tensors run the plain versions. A failed build or
+launch raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+KERNEL_NAME = "resnet_int8"
+CONV = "resnet_int8_conv"
+PREACT = "resnet_int8_preact"
+BLOCK = "resnet_int8_block"
+
+# Kernel launches by wrapper; chip_smoke.py resets and reads them to show
+# that the main path went through the kernels. Every launch fused_block makes
+# inside K2 (one pre-activation and three or four convs per unit) counts
+# under BLOCK, not under CONV or PREACT.
+LAUNCHES = {CONV: 0, PREACT: 0, BLOCK: 0}
+
+# Epilogue and flag codes of csrc/resnet_int8.cu.
+EPILOGUES = {"int32": 0, "requant": 1, "dequant": 2, "dequant_f32": 3,
+             "residual": 4}
+FLAG_FMA, FLAG_RELU, FLAG_RES_BF16 = 1, 2, 4
+_OUT_DTYPE = {"int32": torch.int32, "requant": torch.int8,
+              "dequant": torch.bfloat16, "dequant_f32": torch.float32,
+              "residual": torch.bfloat16}
+
+PARAM_KEYS = ("pA", "pB", "w1", "q1m", "q1a", "w2", "q2m", "q2a",
+              "w3", "d3m", "d3a")
+SC_KEYS = PARAM_KEYS + ("wsc", "dscm", "dsca")
+
+
+def _keys(has_shortcut: bool):
+    return SC_KEYS if has_shortcut else PARAM_KEYS
+
+
+def hwio_to_kmajor(wq: torch.Tensor) -> torch.Tensor:
+    """(kh, kw, Cin, Cout) -> (Cout, kh*kw*Cin), K contiguous."""
+    return wq.reshape(-1, wq.shape[-1]).t().contiguous()
+
+
+def conv_geometry(xq: torch.Tensor, wt: torch.Tensor, stride: int):
+    """(kernel size, output height, output width) of conv_s8."""
+    if xq.dim() != 4 or wt.dim() != 2:
+        raise ValueError(
+            f"conv_s8 takes x (N, H, W, Cin) and wt (Cout, K), got "
+            f"{tuple(xq.shape)} and {tuple(wt.shape)}"
+        )
+    cin = xq.shape[-1]
+    taps = wt.shape[1] // cin if cin else 0
+    ks = math.isqrt(taps)
+    if ks * ks * cin != wt.shape[1] or ks % 2 == 0:
+        raise ValueError(
+            f"wt has K={wt.shape[1]}, not k*k*Cin for an odd k and Cin={cin}"
+        )
+    if stride < 1:
+        raise ValueError(f"stride {stride} < 1")
+    pad = (ks - 1) // 2
+    ho = (xq.shape[1] + 2 * pad - ks) // stride + 1
+    wo = (xq.shape[2] + 2 * pad - ks) // stride + 1
+    return ks, ho, wo
+
+
+def conv_s8_reference(xq: torch.Tensor, wt: torch.Tensor,
+                      stride: int = 1) -> torch.Tensor:
+    """Plain int8 conv: float64 ``F.conv2d``, exact because every sum is
+    below 2**53 (|sum| <= 4608 * 127**2). Returns int32 NHWC."""
+    ks, _, _ = conv_geometry(xq, wt, stride)
+    cout, cin = wt.shape[0], xq.shape[-1]
+    w = wt.reshape(cout, ks, ks, cin).permute(0, 3, 1, 2).double()
+    y = F.conv2d(xq.permute(0, 3, 1, 2).double(), w, stride=stride,
+                 padding=(ks - 1) // 2)
+    return y.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def fma_reference(a, b, c):
+    """float32 fused multiply-add a*b + c, rounded once (through float64:
+    the product of two floats is exact there)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def epilogue_reference(acc, epilogue, mul=None, add=None, *, relu=False,
+                       fma=False, residual=None):
+    """The conv epilogues of the CUDA source, in plain PyTorch."""
+    if epilogue == "int32":
+        return acc
+    y = acc.float()
+    if epilogue == "requant":
+        v = fma_reference(y, mul, add) if fma else y * mul + add
+        return torch.round(v).clamp(0.0 if relu else -127.0, 127.0).to(torch.int8)
+    if epilogue == "dequant":
+        v = (y * mul + add).to(torch.bfloat16)
+        if relu:
+            v = torch.clamp_min(v, 0)
+        return v if residual is None else residual + v
+    if epilogue == "dequant_f32":
+        return fma_reference(y, mul, add)
+    if epilogue == "residual":
+        return (fma_reference(y, mul, residual.float()) + add).to(torch.bfloat16)
+    raise ValueError(f"unknown epilogue {epilogue!r}")
+
+
+def _check_conv(xq, wt, stride, epilogue, mul, add, residual):
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    ks, ho, wo = conv_geometry(xq, wt, stride)
+    if xq.dtype != torch.int8 or wt.dtype != torch.int8:
+        raise ValueError(f"conv_s8 takes int8, got {xq.dtype} and {wt.dtype}")
+    cout = wt.shape[0]
+    if epilogue != "int32":
+        for name, t in (("mul", mul), ("add", add)):
+            if t is None or tuple(t.shape) != (cout,) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be ({cout},) float32")
+    needs_res = epilogue == "residual"
+    if needs_res and residual is None:
+        raise ValueError("the residual epilogue needs a residual")
+    if residual is not None:
+        if epilogue not in ("dequant", "residual"):
+            raise ValueError(f"epilogue {epilogue!r} takes no residual")
+        want = (xq.shape[0], ho, wo, cout)
+        if tuple(residual.shape) != want:
+            raise ValueError(f"residual shape {tuple(residual.shape)}, want {want}")
+        ok = (torch.bfloat16,) if epilogue == "dequant" else (
+            torch.bfloat16, torch.float32)
+        if residual.dtype not in ok:
+            raise ValueError(f"residual dtype {residual.dtype}, want one of {ok}")
+    return ks, ho, wo
+
+
+def _operands(*tensors):
+    return [t for t in tensors if t is not None]
+
+
+def _device_of(tensors, what):
+    if all(t.is_cuda for t in tensors):
+        dev = tensors[0].device
+        if any(t.device != dev for t in tensors):
+            raise ValueError(f"{what} operands on several CUDA devices")
+        return "cuda"
+    if all(t.device.type == "cpu" for t in tensors):
+        return "cpu"
+    raise ValueError(
+        f"{what} operands must all be CUDA or all CPU tensors, got "
+        f"{sorted({str(t.device) for t in tensors})}"
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_library() -> ctypes.CDLL:
+    """The built kernel library, with its C signatures declared."""
+    from human_dynamics_tpu_torch.ops._build import load_kernel_library
+
+    lib = load_kernel_library(KERNEL_NAME).lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.resnet_int8_conv_launch.argtypes = [ptr] * 6 + [i32] * 11 + [ptr]
+    lib.resnet_int8_conv_launch.restype = i32
+    lib.resnet_int8_preact_launch.argtypes = (
+        [ptr] * 5 + [ctypes.c_longlong, i32, i32, ptr])
+    lib.resnet_int8_preact_launch.restype = i32
+    lib.resnet_int8_error_string.argtypes = [i32]
+    lib.resnet_int8_error_string.restype = ctypes.c_char_p
+    lib.resnet_int8_layout.argtypes = [i32]
+    lib.resnet_int8_layout.restype = i32
+    layout = tuple(lib.resnet_int8_layout(i) for i in range(8))
+    want = tuple(EPILOGUES.values()) + (FLAG_FMA, FLAG_RELU, FLAG_RES_BF16)
+    if layout != want:
+        raise RuntimeError(
+            f"{KERNEL_NAME} was built with codes {layout}, the wrapper "
+            f"expects {want}"
+        )
+    return lib
+
+
+def _raise_on(code, what):
+    if code != 0:
+        msg = _kernel_library().resnet_int8_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({code})")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_cuda_layout(aligned, others=()):
+    """Contiguity of every operand; 16-byte alignment of those the kernels
+    read in 16-byte vectors."""
+    for t in list(aligned) + list(others):
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous operands")
+    for t in aligned:
+        if t.data_ptr() % 16:
+            raise ValueError("the CUDA kernels take 16-byte aligned x and wt")
+
+
+def _conv_cuda(counter, xq, wt, stride, epilogue, mul=None, add=None, *,
+               relu=False, fma=False, residual=None):
+    """Launch the conv kernel on PyTorch's current stream; the launch
+    counts under LAUNCHES[counter]."""
+    ks, ho, wo = _check_conv(xq, wt, stride, epilogue, mul, add, residual)
+    n, h, w, cin = xq.shape
+    cout = wt.shape[0]
+    if cin % 16 or cout % 8:
+        raise ValueError(
+            f"the conv kernel takes Cin % 16 == 0 and Cout % 8 == 0, got "
+            f"Cin={cin}, Cout={cout}"
+        )
+    _check_cuda_layout((xq, wt), _operands(mul, add, residual))
+    out = torch.empty((n, ho, wo, cout), dtype=_OUT_DTYPE[epilogue],
+                      device=xq.device)
+    flags = ((FLAG_FMA if fma else 0) | (FLAG_RELU if relu else 0)
+             | (FLAG_RES_BF16 if residual is not None
+                and residual.dtype == torch.bfloat16 else 0))
+    lib = _kernel_library()
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        code = lib.resnet_int8_conv_launch(
+            xq.data_ptr(), wt.data_ptr(), out.data_ptr(), _ptr(mul),
+            _ptr(add), _ptr(residual), n, h, w, cin, cout, ks, stride, ho,
+            wo, EPILOGUES[epilogue], flags, stream,
+        )
+    _raise_on(code, CONV)
+    LAUNCHES[counter] += 1
+    return out
+
+
+def conv_s8(xq: torch.Tensor, wt: torch.Tensor, stride: int = 1, *,
+            epilogue: str = "int32", mul: Optional[torch.Tensor] = None,
+            add: Optional[torch.Tensor] = None, relu: bool = False,
+            fma: bool = False,
+            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 conv with int32 accumulation and a fused epilogue.
+
+    xq (N, H, W, Cin) int8; wt (Cout, k*k*Cin) int8, k odd; padding
+    (k-1)//2 on both sides. ``epilogue`` (per output channel c, y the
+    accumulator as f32):
+
+    - "int32": y as int32;
+    - "requant": int8 clip(rint(y*mul + add), lo, 127), lo 0 with ``relu``
+      else -127; ``fma`` fuses the multiply-add (K2), else it is XLA's
+      separate multiply and add;
+    - "dequant": bf16(y*mul + add), then max(., 0) with ``relu``, then
+      + ``residual`` (bf16) when given;
+    - "dequant_f32": f32 fma(y, mul, add) (K2's projection shortcut);
+    - "residual": bf16(fma(y, mul, residual) + add) (K2's last conv),
+      residual f32 or bf16.
+    """
+    tensors = _operands(xq, wt, mul, add, residual)
+    if _device_of(tensors, "conv_s8") == "cpu":
+        _check_conv(xq, wt, stride, epilogue, mul, add, residual)
+        return epilogue_reference(
+            conv_s8_reference(xq, wt, stride), epilogue, mul, add,
+            relu=relu, fma=fma, residual=residual,
+        )
+    return _conv_cuda(CONV, xq, wt, stride, epilogue, mul, add, relu=relu,
+                      fma=fma, residual=residual)
+
+
+def _check_preact(x, pa, pb, s, mode):
+    if mode not in (0, 1):
+        raise ValueError(f"preact mode {mode} is not 0 (K2) or 1 (XLA path)")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"preact_quant takes bf16, got {x.dtype}")
+    c = x.shape[-1]
+    for name, t in (("pa", pa), ("pb", pb)):
+        if tuple(t.shape) != (c,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({c},) float32")
+    if mode == 1 and (s is None or s.numel() != 1 or s.dtype != torch.float32):
+        raise ValueError("mode 1 needs the float32 scale s")
+
+
+def preact_quant_reference(x, pa, pb, s=None, *, mode: int = 0):
+    """Plain version of ``preact_quant``."""
+    if mode == 0:
+        v = torch.clamp_min(fma_reference(x.float(), pa, pb), 0.0)
+    else:
+        t = (x.float() * pa).to(torch.bfloat16).float()
+        p = torch.clamp_min((t + pb).to(torch.bfloat16).float(), 0.0)
+        v = p / s.reshape(())
+    return torch.round(v).clamp(0.0, 127.0).to(torch.int8)
+
+
+def _preact_cuda(counter, x, pa, pb, s=None, *, mode: int = 0):
+    """Launch the pre-activation kernel; counts under LAUNCHES[counter]."""
+    _check_preact(x, pa, pb, s, mode)
+    c = x.shape[-1]
+    if c % 8:
+        raise ValueError(f"the preact kernel takes C % 8 == 0, got {c}")
+    _check_cuda_layout((x,), _operands(pa, pb, s))
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    lib = _kernel_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.resnet_int8_preact_launch(
+            x.data_ptr(), out.data_ptr(), pa.data_ptr(), pb.data_ptr(),
+            _ptr(s), x.numel(), c, mode, stream,
+        )
+    _raise_on(code, PREACT)
+    LAUNCHES[counter] += 1
+    return out
+
+
+def preact_quant(x: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
+                 s: Optional[torch.Tensor] = None, *,
+                 mode: int = 0) -> torch.Tensor:
+    """bf16 residual stream (..., C) -> int8 pre-activation, per channel c:
+
+    - mode 0 (K2, ``_unit_body``): clip(rint(max(fma(x, pa, pb), 0)), 0, 127)
+      with pa = A / s_p, pb = B / s_p;
+    - mode 1 (the XLA static path): p = max(bf16(bf16(x*pa) + pb), 0) with
+      pa, pb the bf16-rounded BN fold; clip(rint(p / s), 0, 127).
+    """
+    if _device_of(_operands(x, pa, pb, s), "preact_quant") == "cpu":
+        _check_preact(x, pa, pb, s, mode)
+        return preact_quant_reference(x, pa, pb, s, mode=mode)
+    return _preact_cuda(PREACT, x, pa, pb, s, mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# K2: the chained bottleneck block
+# ---------------------------------------------------------------------------
+
+
+def prepare_pallas_unit(qp: Dict[str, torch.Tensor],
+                        scales: Dict[str, torch.Tensor], pre: str,
+                        has_shortcut: bool) -> Dict[str, torch.Tensor]:
+    """Fold (qp, static scales) for one unit into K2's operands.
+
+    ``qp``/``scales`` come from models/resnet_int8.prepare_int8_params and
+    calibrate_int8_scales; ``pre`` is the unit prefix
+    ('block2/unit_2/bottleneck_v2/'). The multipliers compose dequant
+    (s_x * scale) and the next layer's quant (1 / s_out) in f32 in the JAX
+    order. Weights are k-major (the JAX operands transposed): w1 (Cb, Cin),
+    w2 (Cb, 9*Cb), w3 (Cout, Cb), wsc (Cout, Cin); multipliers are (C,).
+    """
+    f32 = lambda v: v.to(torch.float32)
+    s_p = f32(scales[pre + "preact"])
+    s_h1 = f32(scales[pre + "conv1"])
+    s_h2 = f32(scales[pre + "conv2"])
+    out = {
+        "pA": f32(qp[pre + "preact/A"]) / s_p,
+        "pB": f32(qp[pre + "preact/B"]) / s_p,
+        "w1": hwio_to_kmajor(qp[pre + "conv1/wq"]),
+        "q1m": f32(qp[pre + "conv1/scale"]) * s_p / s_h1,
+        "q1a": f32(qp[pre + "conv1/bias"]) / s_h1,
+        "w2": hwio_to_kmajor(qp[pre + "conv2/wq"]),
+        "q2m": f32(qp[pre + "conv2/scale"]) * s_h1 / s_h2,
+        "q2a": f32(qp[pre + "conv2/bias"]) / s_h2,
+        "w3": hwio_to_kmajor(qp[pre + "conv3/wq"]),
+        "d3m": f32(qp[pre + "conv3/scale"]) * s_h2,
+        "d3a": f32(qp[pre + "conv3/bias"]),
+    }
+    if has_shortcut:
+        out["wsc"] = hwio_to_kmajor(qp[pre + "shortcut/wq"])
+        out["dscm"] = f32(qp[pre + "shortcut/scale"]) * s_p
+        out["dsca"] = f32(qp[pre + "shortcut/bias"])
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def _check_block(x, unit_params, h, w, unit_specs):
+    if x.dim() != 4 or tuple(x.shape[1:3]) != (h, w):
+        raise ValueError(f"x shape {tuple(x.shape)}, want (N, {h}, {w}, C)")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"fused_block takes a bf16 stream, got {x.dtype}")
+    if len(unit_params) != len(unit_specs) or not unit_params:
+        raise ValueError("one has_shortcut flag per unit, at least one unit")
+    cb = unit_params[0]["w1"].shape[0]
+    c = x.shape[-1]
+    for p, sc in zip(unit_params, unit_specs):
+        missing = set(_keys(sc)) - set(p)
+        if missing:
+            raise ValueError(f"unit operands lack {sorted(missing)}")
+        if p["w1"].shape[0] != cb:
+            raise ValueError("a chain shares one Cb")
+        if p["w1"].shape[1] != c:
+            raise ValueError(f"w1 takes Cin={p['w1'].shape[1]}, stream has {c}")
+        if not sc and p["w3"].shape[0] != c:
+            raise ValueError("an identity shortcut needs Cout == Cin")
+        c = p["w3"].shape[0]
+
+
+def _unit_plain(x, p, has_shortcut):
+    pq = preact_quant_reference(x, p["pA"], p["pB"], mode=0)
+    if has_shortcut:
+        shortcut = epilogue_reference(conv_s8_reference(pq, p["wsc"]),
+                                      "dequant_f32", p["dscm"], p["dsca"])
+    else:
+        shortcut = x
+    h1 = epilogue_reference(conv_s8_reference(pq, p["w1"]), "requant",
+                            p["q1m"], p["q1a"], relu=True, fma=True)
+    h2 = epilogue_reference(conv_s8_reference(h1, p["w2"]), "requant",
+                            p["q2m"], p["q2a"], relu=True, fma=True)
+    return epilogue_reference(conv_s8_reference(h2, p["w3"]), "residual",
+                              p["d3m"], p["d3a"], residual=shortcut)
+
+
+def _unit_cuda(x, p, has_shortcut):
+    pq = _preact_cuda(BLOCK, x, p["pA"], p["pB"], mode=0)
+    if has_shortcut:
+        shortcut = _conv_cuda(BLOCK, pq, p["wsc"], 1, "dequant_f32",
+                              p["dscm"], p["dsca"])
+    else:
+        shortcut = x
+    h1 = _conv_cuda(BLOCK, pq, p["w1"], 1, "requant", p["q1m"], p["q1a"],
+                    relu=True, fma=True)
+    h2 = _conv_cuda(BLOCK, h1, p["w2"], 1, "requant", p["q2m"], p["q2a"],
+                    relu=True, fma=True)
+    return _conv_cuda(BLOCK, h2, p["w3"], 1, "residual", p["d3m"], p["d3a"],
+                      residual=shortcut)
+
+
+def fused_block_reference(x: torch.Tensor, unit_params: Sequence[Dict], *,
+                          h: int, w: int,
+                          unit_specs: Sequence[bool]) -> torch.Tensor:
+    """Plain version of ``fused_block``, any device."""
+    _check_block(x, unit_params, h, w, unit_specs)
+    for p, sc in zip(unit_params, unit_specs):
+        x = _unit_plain(x, p, sc)
+    return x
+
+
+def fused_block(x: torch.Tensor, unit_params: Sequence[Dict], *, h: int,
+                w: int, unit_specs: Sequence[bool]) -> torch.Tensor:
+    """K2: a chain of stride-1 int8 bottleneck units (``_unit_body``).
+
+    Args:
+        x: (N, H, W, Cin) bf16 residual stream.
+        unit_params: per-unit operand dicts from ``prepare_pallas_unit``.
+        h/w: the spatial size, unchanged along the chain.
+        unit_specs: one has_shortcut flag per unit.
+
+    Returns:
+        (N, H, W, Cout) bf16.
+    """
+    tensors = [x] + [t for p in unit_params for t in p.values()]
+    if _device_of(tensors, "fused_block") == "cpu":
+        return fused_block_reference(x, unit_params, h=h, w=w,
+                                     unit_specs=unit_specs)
+    _check_block(x, unit_params, h, w, unit_specs)
+    for p, sc in zip(unit_params, unit_specs):
+        x = _unit_cuda(x, p, sc)
+    return x
+
+
+def fused_bottleneck_unit(x: torch.Tensor, params: Dict, *, h: int, w: int,
+                          has_shortcut: bool = False) -> torch.Tensor:
+    """One fused unit (a chain of one); see ``fused_block``."""
+    return fused_block(x, (params,), h=h, w=w, unit_specs=(has_shortcut,))

@@ -12,6 +12,9 @@
 The mapping is strict: every leaf is used exactly once, and every port
 parameter and buffer receives one; a missing, left-over or mis-shaped leaf
 raises before anything is copied.
+
+- ``load_jax_int8`` carries the JAX int8 encoder's quantised weights and
+  calibrated scales across, as strictly.
 """
 
 from __future__ import annotations
@@ -141,3 +144,60 @@ def load_jax_variables(module: nn.Module, variables) -> nn.Module:
                 arr = arr.transpose(perm)
             tensors[name].copy_(torch.tensor(arr))
     return module
+
+
+def _int8_tensor(key: str, arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype == np.int8:
+        return torch.from_numpy(arr.copy()).to(device)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes: exact through float32
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    if arr.dtype == np.float32:
+        return torch.from_numpy(arr.copy()).to(device)
+    raise ValueError(f"{key}: dtype {arr.dtype} is not int8, bf16 or f32")
+
+
+def load_jax_int8(qp, scales, device=None):
+    """The JAX package's ``prepare_int8_params`` and
+    ``calibrate_int8_scales`` dicts (numpy leaves; ``scales`` may be None)
+    as the port's, on ``device``.
+
+    Strict: every key of ``qp`` must be a key the port's
+    ``prepare_int8_params`` makes, or one of the int8_root keys, which are
+    dropped by name; every key the port makes must be present. Every scale
+    must be a scalar.
+    """
+    from human_dynamics_tpu_torch.models.resnet import ResNetV2_50
+    from human_dynamics_tpu_torch.models.resnet_int8 import (
+        INT8_ROOT_KEYS,
+        prepare_int8_params,
+    )
+
+    # The key set (and the shapes) the port makes, from a meta-device trunk.
+    want = prepare_int8_params(ResNetV2_50(device="meta"))
+    extra = sorted(set(qp) - set(want) - set(INT8_ROOT_KEYS))
+    missing = sorted(set(want) - set(qp))
+    if extra or missing:
+        raise ValueError(
+            f"int8 params: keys with no port counterpart {extra}, "
+            f"missing {missing}"
+        )
+    out_qp = {}
+    for key, ref in want.items():
+        if tuple(np.shape(qp[key])) != tuple(ref.shape):
+            raise ValueError(
+                f"{key}: shape {np.shape(qp[key])}, port has {tuple(ref.shape)}"
+            )
+        t = _int8_tensor(key, qp[key], device)
+        if t.dtype != ref.dtype:
+            raise ValueError(f"{key}: dtype {t.dtype}, port has {ref.dtype}")
+        out_qp[key] = t
+    if scales is None:
+        return out_qp, None
+    out_scales = {}
+    for key, v in scales.items():
+        if np.ndim(v) != 0:
+            raise ValueError(f"scale {key} has shape {np.shape(v)}")
+        out_scales[key] = torch.tensor(np.float32(v), device=device)
+    return out_qp, out_scales

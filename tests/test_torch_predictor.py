@@ -11,6 +11,7 @@ import json
 import os
 import subprocess
 import sys
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -70,7 +71,7 @@ def test_phi_mode_matches_jax(phi_models, use_fused_smpl, pred_mode):
     ).predict_all_images(phi)
     got = HmmrPredictor(
         tm, None, synthetic_smpl_model(num_verts=96, num_kps=25),
-        groups_per_step=2, **kw,
+        groups_per_step=2, device="cpu", **kw,
     ).predict_all_images(phi)
     assert ("verts_delta" in got) == (pred_mode == "pred")
     if pred_mode == "pred":
@@ -93,11 +94,107 @@ def test_image_mode_uint8_full_resnet_matches_jax():
         jm, variables, jax_smpl(num_verts=48, num_kps=25), **kw
     ).predict_all_images(raw)
     got = HmmrPredictor(
-        tm, None, synthetic_smpl_model(num_verts=48, num_kps=25), **kw
+        tm, None, synthetic_smpl_model(num_verts=48, num_kps=25),
+        device="cpu", **kw
     ).predict_all_images(raw)
     assert got["verts"].shape == (25, 48, 3)
     assert got["verts_delta"].shape == (25, 2, 48, 3)
     _assert_outputs_close(got, want)
+
+
+@pytest.fixture(scope="module")
+def image_models():
+    return _models(include_resnet=True, example=jnp.zeros((1, 1, 64, 64, 3)))
+
+
+_RAW = np.random.RandomState(2).randint(0, 256, (25, 64, 64, 3)).astype(
+    np.uint8)
+_CALIB = np.random.RandomState(4).randint(0, 256, (8, 64, 64, 3)).astype(
+    np.uint8)
+_INT8 = dict(int8_encoder=True, int8_calibration=_CALIB)
+_BENCH = dict(_INT8, bf16_temporal=True, use_fused_smpl=True)
+
+# (options, run on the JAX predictor's own int8 weights and scales, atol on
+# every output key or None for the fp32 tolerances). A bf16 or int8 atol is
+# 3x the largest max|port - JAX| over the keys, measured on this clip:
+# - int8_static, quantised by the port itself: 1.34e-2 (verts_delta;
+#   omegas 5.5e-3). The BN fold's rsqrt differs by an ulp between XLA and
+#   torch, and XLA rewrites divisions by constants inside jit, so a few
+#   int8 roundings flip.
+# - the bench config on the JAX int8 weights and scales: 3.9e-3 (cams,
+#   omegas): bf16 roundings of the window tail (temporal encoder, IEF
+#   heads) in another order.
+# - bf16_encoder: 4.3e-3 (verts_delta): bf16 convolutions summed in another
+#   order.
+# On the JAX int8 weights and scales the int8 encoder agrees to ~1e-6.
+_PRECISION_CASES = {
+    "int8_static": (_INT8, False, 4e-2),
+    "int8_static_jax_params": (_INT8, True, None),
+    "int8_dynamic_jax_params": (dict(int8_encoder=True), True, None),
+    "bench_config_jax_params": (_BENCH, True, 1.2e-2),
+    "bf16_encoder": (dict(bf16_encoder=True), False, 1.3e-2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PRECISION_CASES))
+def test_precision_options_match_jax(image_models, case):
+    """The bf16 and int8 options against the JAX predictor on 25 uint8
+    frames of 64x64 (B=2, encode_chunk=16, a ragged tail chunk)."""
+    from human_dynamics_tpu_torch.utils.weights import load_jax_int8
+
+    options, jax_params, atol = _PRECISION_CASES[case]
+    jm, variables, tm = image_models
+    kw = dict(batch_size=2, seq_length=20, encode_chunk=16, **options)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        jp = JaxPredictor(jm, variables, jax_smpl(num_verts=48, num_kps=25),
+                          **kw)
+        tp = HmmrPredictor(tm, None,
+                           synthetic_smpl_model(num_verts=48, num_kps=25),
+                           device="cpu", **kw)
+    if jax_params:
+        qp = {k: np.asarray(v) for k, v in jp._int8_qp.items()
+              if not k.startswith("calib/")}
+        scales = {k[len("calib/"):]: np.asarray(v)
+                  for k, v in jp._int8_qp.items() if k.startswith("calib/")}
+        tp.set_int8_params(*load_jax_int8(qp, scales or None))
+    want = jp.predict_all_images(_RAW)
+    got = tp.predict_all_images(_RAW)
+    assert got["omegas"].dtype == np.float32
+    if atol is None:
+        _assert_outputs_close(got, want)
+        return
+    assert set(got) == set(want)
+    for k in sorted(want):
+        assert got[k].shape == np.shape(want[k]), k
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), atol=atol,
+                                   rtol=0, err_msg=k)
+
+
+def test_int8_and_bf16_hold_no_fp32_encoder_copy(image_models):
+    """The int8 encoder keeps only its quantised plan (the model's fp32
+    ResNet is not moved to the device), and bf16_temporal runs a bf16 copy
+    of the window tail without the ResNet, leaving the model fp32."""
+    _, _, tm = image_models
+    smpl = synthetic_smpl_model(num_verts=48, num_kps=25)
+    pred = HmmrPredictor(tm, None, smpl, device="cpu", **_BENCH)
+    assert pred._encoder is None and pred._int8_plan is not None
+    assert not hasattr(pred._tail, "resnet_v2_50")
+    assert pred._tail.single_view_ief.fc1.weight.dtype == torch.bfloat16
+    assert tm.single_view_ief.fc1.weight.dtype == torch.float32
+    assert hasattr(tm, "resnet_v2_50")
+
+
+def test_device_defaults_to_cuda_and_never_falls_back(phi_models,
+                                                      monkeypatch):
+    """device=None means the CUDA device; without one it raises and says
+    how to ask for the CPU."""
+    _, _, tm = phi_models
+    smpl = synthetic_smpl_model(num_verts=32, num_kps=19)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HmmrPredictor(tm, None, smpl)
+    assert tm.mean_param.device.type == "cpu"
 
 
 def test_groups_per_step_state_and_device_outputs(phi_models):
@@ -107,8 +204,10 @@ def test_groups_per_step_state_and_device_outputs(phi_models):
     _, _, tm = phi_models
     smpl = synthetic_smpl_model(num_verts=64, num_kps=19)
     phi = np.random.RandomState(3).randn(70, 64).astype(np.float32)
-    one = HmmrPredictor(tm, None, smpl, batch_size=2, groups_per_step=8)
-    many = HmmrPredictor(tm, None, smpl, batch_size=2, groups_per_step=1)
+    one = HmmrPredictor(tm, None, smpl, batch_size=2, groups_per_step=8,
+                        device="cpu")
+    many = HmmrPredictor(tm, None, smpl, batch_size=2, groups_per_step=1,
+                         device="cpu")
     a = one.predict_all_images(phi)
     b = many.predict_all_images(torch.from_numpy(phi), as_numpy=False)
     assert all(isinstance(v, torch.Tensor) for v in b.values())
@@ -116,22 +215,28 @@ def test_groups_per_step_state_and_device_outputs(phi_models):
         np.testing.assert_allclose(b[k].numpy(), a[k], atol=1e-6, err_msg=k)
     # `state` loads a state_dict into the model the predictor is given.
     fresh = HmmrModel(feature_dim=64, device="meta").to_empty(device="cpu")
-    c = HmmrPredictor(fresh, tm.state_dict(), smpl, batch_size=2)
+    c = HmmrPredictor(fresh, tm.state_dict(), smpl, batch_size=2,
+                      device="cpu")
     np.testing.assert_array_equal(c.predict_all_images(phi)["omegas"],
                                   a["omegas"])
 
 
 def test_predictor_rejects_unported_options(phi_models):
+    """unroll_chunks, int8_root and int8_stream are not ported; the bf16
+    and int8 options are."""
     _, _, tm = phi_models
     smpl = synthetic_smpl_model(num_verts=32, num_kps=19)
-    for opt in ("bf16_encoder", "bf16_temporal", "int8_encoder",
-                "unroll_chunks"):
+    for opt in ("unroll_chunks", "int8_root", "int8_stream"):
         with pytest.raises(TypeError):
-            HmmrPredictor(tm, None, smpl, **{opt: True})
+            HmmrPredictor(tm, None, smpl, device="cpu", **{opt: True})
+    for opt in ("bf16_encoder", "bf16_temporal"):
+        HmmrPredictor(tm, None, smpl, device="cpu", **{opt: True})
+    with pytest.warns(RuntimeWarning, match="dynamic"):
+        HmmrPredictor(tm, None, smpl, device="cpu", int8_encoder=True)
     with pytest.raises(ValueError, match="Pred mode"):
-        HmmrPredictor(tm, None, smpl, pred_mode="nope")
+        HmmrPredictor(tm, None, smpl, pred_mode="nope", device="cpu")
     with pytest.raises(ValueError, match="fov"):
-        HmmrPredictor(tm, None, smpl, seq_length=12)
+        HmmrPredictor(tm, None, smpl, seq_length=12, device="cpu")
 
 
 @pytest.mark.parametrize("n", [1, 8, 37, 64, 65, 480])
