@@ -20,17 +20,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
 4. The int8 trunk at 120 frames of 224x224, static scales calibrated on
    32 frames: apply_int8_static(use_pallas=True), K2's path, with its
    launch count, against use_pallas=False and both against the fp32 trunk.
-   Every int8 conv and pre-activation call of the use_pallas=False run and
-   every K2 chain of the use_pallas=True run is recorded and replayed:
-   the kernel against its plain version (int32 accumulators and outputs
-   equal; K2 within 0.1% differing elements and rel L2 1e-3), and timed
-   with CUDA events, kernel and plain version in turns; torch._int_mm is
-   timed beside the 1x1 stride-1 convs.
+   Every int8 conv and standalone pre-activation call of the
+   use_pallas=False run (52 convs, 15 of them with the next unit's
+   pre-activation fused in, and 1 standalone pre-activation) and every K2
+   chain of the use_pallas=True run is recorded and replayed: the kernel
+   against its plain version (int32 accumulators, outputs and fused
+   pre-activations equal; K2 within 0.1% differing elements and rel L2
+   1e-3), and timed with CUDA events, kernel and plain version in turns
+   (per call with the wrapper's host time, as the trunk meets it), the conv
+   also on the device alone (its launches queued behind a spin kernel: the
+   conv's "ms"); a per-geometry table with each conv's path and tile;
+   torch._int_mm is timed beside the 1x1 stride-1 convs.
 5. The predictor in the JAX bench configuration (int8_encoder + 32
    calibration frames + bf16_temporal + use_fused_smpl) and with
    bf16_encoder, on the 480-frame clip: shapes, finiteness, omegas within
-   0.5 of the fp32 predictor, launch counts of K1, the int8 conv and the
-   pre-activation kernel.
+   0.5 of the fp32 predictor, launch counts per clip of K1, the int8 conv
+   (52 per 120-frame chunk, 36 of them on the TMA path) and the standalone
+   pre-activation (1 per chunk).
 6. Smoke timing of the fp32, bf16_encoder and int8 bench predictors, in
    turns. With --profile, a torch.profiler breakdown of one int8 clip.
 
@@ -64,6 +70,9 @@ OMEGA_TOL = 0.5  # tests/test_resnet_int8.py:113
 
 # Published peaks of one H100 SXM (dense): int8 tensor cores, FP32 pipe, HBM.
 INT8_OPS, FP32_OPS, HBM_BYTES = 1979e12, 67e12, 3.35e12
+# ~2.8 ms of spinning at 1.755 GHz: longer than the host takes to queue the
+# 10 conv calls that device_ms times behind it.
+SPIN_CYCLES = 5_000_000
 
 
 def check(cond, msg):
@@ -92,6 +101,24 @@ def cuda_ms(fn, iters=20):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=10):
+    """Device time of fn() over `iters` calls: the calls are queued behind a
+    spin kernel, so the host's time between launches does not count."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -137,6 +164,13 @@ class Recorder:
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
             setattr(self.module, n, fn)
+
+
+def reset_counts(K):
+    """Zero the int8 kernels' launch counters, by wrapper and by path."""
+    for counts in (K.LAUNCHES, K.PATH_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def build_all(load_kernel_libraries, names):
@@ -242,6 +276,9 @@ def check_predictor_outputs(torch, out, what):
 
 
 def conv_call_bound(torch, x, wt, stride, kw):
+    """(operations, bytes) of one conv call: each input read once, each
+    output written once, the fused pre-activation's int8 output and its
+    per-channel operands included."""
     from human_dynamics_tpu_torch.ops import resnet_int8_cuda as K
 
     ks, ho, wo = K.conv_geometry(x, wt, stride)
@@ -250,6 +287,9 @@ def conv_call_bound(torch, x, wt, stride, kw):
     ops = 2 * m * wt.shape[1] * cout
     b = (nbytes(x, wt, kw.get("mul"), kw.get("add"), kw.get("residual"))
          + m * cout * out_size)
+    pre = kw.get("preact")
+    if pre is not None:
+        b += nbytes(pre.pa, pre.pb, pre.s) + m * cout
     return ops, b
 
 
@@ -268,6 +308,33 @@ def int_mm_ms(torch, xq, wt, acc, total):
     return (total or 0.0) + lib
 
 
+def replay_conv(torch, K, n, xq, wt, stride, kw):
+    """One recorded conv call, kernel against plain: the int32 accumulators,
+    the epilogue output and any fused pre-activation must be equal.
+    Returns (int32 accumulators, max abs error, kernel ms per call with the
+    wrapper, plain ms, kernel device ms)."""
+    acc = K.conv_s8(xq, wt, stride)
+    acc_ref = K.conv_s8_reference(xq, wt, stride)
+    check(torch.equal(acc, acc_ref),
+          f"conv call {n}: int32 accumulators differ")
+    got = K.conv_s8(xq, wt, stride, **kw)
+    want = K.epilogue_reference(acc_ref, **kw)
+    if kw.get("preact") is None:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        check(torch.equal(g, w), f"conv call {n} ({kw['epilogue']}"
+              f"{', fused preact' if len(got) == 2 else ''}) differs")
+    err = max([max_abs(acc, acc_ref)]
+              + [max_abs(g, w) for g, w in zip(got, want)])
+    k_ms, p_ms = in_turns(
+        lambda: K.conv_s8(xq, wt, stride, **kw),
+        lambda: K.epilogue_reference(K.conv_s8_reference(xq, wt, stride),
+                                     **kw))
+    d_ms = min(device_ms(lambda: K.conv_s8(xq, wt, stride, **kw))
+               for _ in range(2))
+    return acc, err, k_ms, p_ms, d_ms
+
+
 def phase_int8_kernels(torch, model, frames):
     """Phase 4: the int8 trunk, its recorded conv / preact / K2 calls."""
     from human_dynamics_tpu_torch.infer import HmmrPredictor
@@ -283,19 +350,26 @@ def phase_int8_kernels(torch, model, frames):
         plan_k2 = R.prepare_int8_static(qp, scales, use_pallas=True)
 
         # K2's path, counted.
-        for k in K.LAUNCHES:
-            K.LAUNCHES[k] = 0
-        with Recorder(R, ["fused_block"]) as rec_k2:
+        reset_counts(K)
+        with Recorder(R, ["fused_block_pq"]) as rec_k2:
             phi_k2 = R.apply_int8_static(qp, scales, x, use_pallas=True)
         torch.cuda.synchronize()
         k2_launches = K.LAUNCHES[K.BLOCK]
         print(f"int8 trunk use_pallas=True, {CHUNK} frames: kernel launches "
-              f"{dict(K.LAUNCHES)}; K2's {k2_launches} in "
-              f"{len(rec_k2.calls)} chains")
+              f"{dict(K.LAUNCHES)}, conv by path {dict(K.PATH_LAUNCHES)}; "
+              f"K2's {k2_launches} in {len(rec_k2.calls)} chains")
         check(k2_launches > 0, "apply_int8_static(use_pallas=True) did not "
               "launch K2")
+        reset_counts(K)
         with Recorder(R, ["conv_s8", "preact_quant"]) as rec_xla:
             phi_xla = R.apply_int8_static(qp, scales, x)
+        torch.cuda.synchronize()
+        print(f"int8 trunk use_pallas=False, {CHUNK} frames: kernel launches "
+              f"{dict(K.LAUNCHES)}, conv by path {dict(K.PATH_LAUNCHES)}")
+        check(K.LAUNCHES[K.PREACT] == 1 and K.PATH_LAUNCHES["tma"] == 36
+              and K.PATH_LAUNCHES["gather"] == 16,
+              "the static trunk should make 1 standalone pre-activation and "
+              "36 TMA + 16 gather conv launches per chunk")
         prev = (torch.backends.cudnn.allow_tf32,
                 torch.backends.cuda.matmul.allow_tf32)
         torch.backends.cudnn.allow_tf32 = False
@@ -320,11 +394,13 @@ def phase_int8_kernels(torch, model, frames):
     check(c_x >= TRUNK_FP32_COS and c_k2f >= TRUNK_FP32_COS,
           "int8 trunk vs fp32 trunk")
 
-    # Every conv and preact call of the XLA path, kernel against plain.
-    conv = {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
+    # Every conv and standalone preact call of the XLA path, kernel against
+    # plain.
+    conv = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "ops": 0,
+            "bytes": 0, "err": 0.0}
     pre = {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
     geoms = {}
-    n_conv = n_pre = 0
+    n_conv = n_pre = n_fused = 0
     with torch.no_grad():
         for name, args, kw in rec_xla.calls:
             if name == "preact_quant":
@@ -344,38 +420,38 @@ def phase_int8_kernels(torch, model, frames):
                 continue
             n_conv += 1
             xq, wt, stride = args
-            acc = K.conv_s8(xq, wt, stride)
-            acc_ref = K.conv_s8_reference(xq, wt, stride)
-            check(torch.equal(acc, acc_ref),
-                  f"conv call {n_conv}: int32 accumulators differ")
-            got = K.conv_s8(xq, wt, stride, **kw)
-            want = K.epilogue_reference(acc_ref, **kw)
-            check(torch.equal(got, want),
-                  f"conv call {n_conv} ({kw['epilogue']}) differs")
-            conv["err"] = max(conv["err"], max_abs(acc, acc_ref),
-                              max_abs(got, want))
-            k_ms, p_ms = in_turns(
-                lambda: K.conv_s8(xq, wt, stride, **kw),
-                lambda: K.epilogue_reference(
-                    K.conv_s8_reference(xq, wt, stride), **kw))
+            n_fused += kw.get("preact") is not None
+            acc, err, k_ms, p_ms, d_ms = replay_conv(torch, K, n_conv, xq,
+                                                     wt, stride, kw)
+            conv["err"] = max(conv["err"], err)
             ops, b = conv_call_bound(torch, xq, wt, stride, kw)
-            conv["ms"] += k_ms
+            conv["ms"] += d_ms
+            conv["call_ms"] += k_ms
             conv["plain_ms"] += p_ms
             conv["ops"] += ops
             conv["bytes"] += b
             ks = K.conv_geometry(xq, wt, stride)[0]
-            key = (xq.shape[1], xq.shape[3], wt.shape[0], ks, stride)
-            g = geoms.setdefault(key, {"n": 0, "ms": 0.0, "plain_ms": 0.0,
-                                       "ops": 0, "lib_ms": None})
+            plan = K.conv_plan(ks, stride, xq.shape[3], wt.shape[0])
+            key = (xq.shape[1], xq.shape[3], wt.shape[0], ks, stride,
+                   kw["epilogue"], kw.get("preact") is not None)
+            g = geoms.setdefault(key, {"n": 0, "ms": 0.0, "call_ms": 0.0,
+                                       "plain_ms": 0.0, "ops": 0, "bytes": 0,
+                                       "lib_ms": None, "plan": plan})
             g["n"] += 1
-            g["ms"] += k_ms
+            g["ms"] += d_ms
+            g["call_ms"] += k_ms
             g["plain_ms"] += p_ms
             g["ops"] += ops
+            g["bytes"] += b
             if ks == 1 and stride == 1:
                 g["lib_ms"] = int_mm_ms(torch, xq, wt, acc, g["lib_ms"])
+    check(n_conv == 52 and n_pre == 1 and n_fused == 15,
+          f"recorded {n_conv} convs ({n_fused} with a fused pre-activation) "
+          f"and {n_pre} standalone pre-activations; want 52 (15) and 1")
     print(f"int8 conv: {n_conv} calls of the XLA path replayed; int32 "
-          f"accumulators and epilogue outputs equal to the plain version "
-          f"(max abs {conv['err']:.3e})")
+          f"accumulators, epilogue outputs and the {n_fused} fused "
+          f"pre-activations equal to the plain version (max abs "
+          f"{conv['err']:.3e})")
     # 1x1 stride 2 (a strided projection shortcut) is not on this trunk;
     # checked on each block's input map all the same.
     gen = torch.Generator(device=frames.device).manual_seed(2)
@@ -389,42 +465,79 @@ def phase_int8_kernels(torch, model, frames):
                               K.conv_s8_reference(xq, wt, 2)),
                   f"int8 conv 1x1/s2 {h}x{h} {cin}: accumulators differ")
     print("int8 conv 1x1/s2 on the block1-3 input maps: accumulators equal")
-    for (h, cin, cout, ks, s), g in sorted(geoms.items()):
-        lib = ("-" if g["lib_ms"] is None
-               else f"{g['lib_ms']:.4f} ms (torch._int_mm, int32 out)")
-        print(f"  conv {ks}x{ks}/s{s} {h}x{h} {cin}->{cout} x{g['n']}: "
-              f"kernel {g['ms']:.4f} ms = {g['ops'] / g['ms'] / 1e9:.1f} "
-              f"TOP/s, plain {g['plain_ms']:.4f} ms, library {lib}")
+    print("  conv geometry (map, Cin->Cout, epilogue[+preact]), path/BNxBK: "
+          "calls, kernel device ms, TOP/s, % of its bound, ms per call with "
+          "the wrapper, plain ms, torch._int_mm ms (int32 out, no epilogue)")
+    s11 = {"n": 0, "ms": 0.0, "call_ms": 0.0, "lib_ms": 0.0}
+    for (h, cin, cout, ks, s, epi, fused), g in sorted(geoms.items()):
+        g_bound, g_by = bound_ms(g["ops"], INT8_OPS, g["bytes"])
+        lib = "-" if g["lib_ms"] is None else f"{g['lib_ms']:.4f}"
+        plan = g["plan"]
+        print(f"  {ks}x{ks}/s{s} {h}x{h} {cin}->{cout} {epi}"
+              f"{'+preact' if fused else ''}, {plan.path}/{plan.bn}x"
+              f"{plan.bk}: x{g['n']}, {g['ms']:.4f} ms, "
+              f"{g['ops'] / g['ms'] / 1e9:.1f} TOP/s, "
+              f"{g_bound / g['ms'] * 100:.1f}% of {g_bound:.4f} ms ({g_by}), "
+              f"call {g['call_ms']:.4f}, plain {g['plain_ms']:.4f}, "
+              f"library {lib}")
+        if ks == 1 and s == 1:
+            s11["n"] += g["n"]
+            s11["ms"] += g["ms"]
+            s11["call_ms"] += g["call_ms"]
+            s11["lib_ms"] = (None if g["lib_ms"] is None or s11["lib_ms"]
+                             is None else s11["lib_ms"] + g["lib_ms"])
+    print(f"int8 conv, the {s11['n']} 1x1/s1 calls (TMA path): kernel "
+          f"device {s11['ms']:.4f} ms, per call with the wrapper "
+          f"{s11['call_ms']:.4f} ms; torch._int_mm {s11['lib_ms']} ms on the "
+          f"same GEMMs (int32 out, no epilogue)")
     c_bound, c_by = bound_ms(conv["ops"], INT8_OPS, conv["bytes"])
     print(f"int8 conv, all {n_conv} calls of one {CHUNK}-frame chunk: "
-          f"kernel {conv['ms']:.4f} ms, plain {conv['plain_ms']:.4f} ms, "
-          f"{conv['ops'] / 1e12:.3f} TOP, bound {c_bound:.4f} ms ({c_by})")
-    print(f"preact: {n_pre} calls: kernel {pre['ms']:.4f} ms, plain "
-          f"{pre['plain_ms']:.4f} ms, equal")
+          f"kernel device {conv['ms']:.4f} ms, per call with the wrapper "
+          f"{conv['call_ms']:.4f} ms, plain {conv['plain_ms']:.4f} ms, "
+          f"{conv['ops'] / 1e12:.3f} TOP, {conv['bytes'] / 1e9:.3f} GB, "
+          f"bound {c_bound:.4f} ms ({c_by})")
     p_bound, p_by = bound_ms(pre["ops"], FP32_OPS, pre["bytes"])
+    print(f"preact: {n_pre} standalone call(s): kernel {pre['ms']:.4f} ms, "
+          f"plain {pre['plain_ms']:.4f} ms, equal; bound {p_bound:.4f} ms "
+          f"({p_by})")
 
-    # Every K2 chain of the use_pallas=True path.
+    # Every K2 chain of the use_pallas=True path: the chain against
+    # fused_block_reference, and the pre-activation it hands on against
+    # a standalone pass over its own output.
     k2 = {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
     with torch.no_grad():
         for _, args, kw in rec_k2.calls:
             xin, units = args
-            got = K.fused_block(xin, units, **kw)
-            want = K.fused_block_reference(xin, units, **kw)
+            spec = {k: kw[k] for k in ("h", "w", "unit_specs")}
+            nxt = kw.get("next_preact")
+            pq_in = kw.get("pq")
+            if pq_in is not None:
+                check(torch.equal(pq_in, K.preact_quant_reference(
+                    xin, units[0]["pA"], units[0]["pB"])),
+                      "the pre-activation handed to a K2 chain differs")
+            got, got_pq = K.fused_block_pq(xin, units, **kw)
+            want = K.fused_block_reference(xin, units, **spec)
+            if nxt is not None:
+                check(torch.equal(got_pq, K.preact_quant_reference(
+                    got, *nxt[:3], mode=nxt.mode)),
+                      "the pre-activation a K2 chain hands on differs")
             frac = float((got != want).float().mean())
             rel = float((got.float() - want.float()).norm()
                         / want.float().norm())
             err = max_abs(got, want)
             k2["err"] = max(k2["err"], err)
-            k_ms, p_ms = in_turns(lambda: K.fused_block(xin, units, **kw),
-                                  lambda: K.fused_block_reference(
-                                      xin, units, **kw))
+            k_ms, p_ms = in_turns(
+                lambda: K.fused_block_pq(xin, units, **kw),
+                lambda: K.fused_block_reference(xin, units, **spec))
             m = xin.shape[0] * kw["h"] * kw["w"]
             ops = sum(2 * m * (u["w1"].numel() + u["w2"].numel()
                                + u["w3"].numel()
                                + (u["wsc"].numel() if "wsc" in u else 0))
                       for u in units)
-            b = nbytes(xin, *[t for u in units for t in u.values()])
-            b += m * units[-1]["w3"].shape[0] * 2
+            b = nbytes(xin, pq_in, *[t for u in units for t in u.values()])
+            b += m * units[-1]["w3"].shape[0] * (2 + (nxt is not None))
+            if nxt is not None:
+                b += nbytes(nxt.pa, nxt.pb, nxt.s)
             u_ms, u_by = bound_ms(ops, INT8_OPS, b)
             print(f"K2 {kw['h']}x{kw['w']} x{len(units)} units, Cin "
                   f"{xin.shape[-1]}, Cb {units[0]['w1'].shape[0]}: differing "
@@ -453,9 +566,11 @@ def phase_int8_kernels(torch, model, frames):
           f"(cuDNN TF32 {torch.backends.cudnn.allow_tf32}) {t_fp32:.3f} ms; "
           f"int8 trunk bound {c_bound:.3f} ms ({c_by}, its convs)")
     return {
+        # library_ms: torch._int_mm on the 36 1x1 stride-1 calls only (int32
+        # out, no epilogue); no one call computes the conv with its epilogue.
         "conv": {"max_abs_err": conv["err"], "ms": conv["ms"],
                  "plain_ms": conv["plain_ms"], "bound_ms": c_bound,
-                 "bound_by": c_by, "library_ms": None},
+                 "bound_by": c_by, "library_ms": s11["lib_ms"]},
         "preact": {"max_abs_err": pre["err"], "ms": pre["ms"],
                    "plain_ms": pre["plain_ms"], "bound_ms": p_bound,
                    "bound_by": p_by, "library_ms": None},
@@ -587,17 +702,24 @@ def main():
                           use_fused_smpl=True, **kw)
     bf16 = HmmrPredictor(model, None, smpl, bf16_encoder=True,
                          use_fused_smpl=True, **kw)
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
+    reset_counts(K)
     smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME] = 0
     out = bench.predict_all_images(frames, as_numpy=False)
     torch.cuda.synchronize()
     counts = dict(K.LAUNCHES, **smpl_cuda.LAUNCHES)
+    paths = dict(K.PATH_LAUNCHES)
+    chunks = -(-N_FRAMES // bench.encode_chunk)
     print(f"predictor bench config (int8 + calibration + bf16_temporal + "
-          f"fused SMPL): launches {counts}")
+          f"fused SMPL), one {N_FRAMES}-frame clip ({chunks} chunks): "
+          f"launches {counts}, conv by path {paths}")
     for name in (K.CONV, K.PREACT, smpl_cuda.KERNEL_NAME):
         check(counts[name] > 0, f"the bench-config predictor did not launch "
               f"{name}")
+    want = {K.CONV: 52 * chunks, K.PREACT: chunks, K.BLOCK: 0}
+    check(all(counts[k] == v for k, v in want.items())
+          and paths == {"tma": 36 * chunks, "gather": 16 * chunks},
+          f"bench-config launches per clip: want {want} and conv by path "
+          f"tma {36 * chunks}, gather {16 * chunks}")
     check_predictor_outputs(torch, out, "bench-config predictor")
     for name, o in (("bench config", out),
                     ("bf16_encoder", bf16.predict_all_images(

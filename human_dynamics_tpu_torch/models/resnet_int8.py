@@ -17,6 +17,10 @@ the XLA path:
 - ``use_pallas=True`` runs every stride-1 unit of blocks 2-4 through K2
   (``ops.resnet_int8_cuda.fused_block``), whose preact is f32 and whose
   multiply-adds are fused, exactly as the JAX Pallas kernel's.
+- On the static path every unit's int8 pre-activation, except the first
+  unit's (its input is the root pool's), is quantised by the previous
+  unit's last conv from the bf16 value it stores: bit-identical to a
+  separate pass over that value, without re-reading it.
 
 Tensors are NHWC and weights HWIO, with the JAX key names
 ('block1/unit_1/bottleneck_v2/conv1/wq', ...). The convs run through
@@ -42,11 +46,13 @@ from human_dynamics_tpu_torch.models.resnet import (
     max_pool_same,
 )
 from human_dynamics_tpu_torch.ops.resnet_int8_cuda import (
+    Preact,
     conv_s8,
-    fused_block,
+    fused_block_pq,
     hwio_to_kmajor,
     preact_quant,
     prepare_pallas_unit,
+    unit_preact,
 )
 
 BLOCKS = RESNET50_BLOCKS
@@ -271,6 +277,13 @@ def _xla_unit(qp, scales, pre, stride, has_shortcut):
     return u
 
 
+def _step_preact(step: Dict) -> Preact:
+    """The pre-activation of a plan step's first unit."""
+    if step["kind"] == "k2":
+        return unit_preact(step["params"][0])
+    return Preact(step["pa"], step["pb"], step["s_p"], 1)
+
+
 @torch.no_grad()
 def prepare_int8_static(qp: Dict[str, torch.Tensor],
                         scales: Dict[str, torch.Tensor],
@@ -279,7 +292,10 @@ def prepare_int8_static(qp: Dict[str, torch.Tensor],
     """Everything ``apply_int8_static`` derives from (qp, scales), computed
     once: per unit the kernels' k-major weights and composed multipliers,
     with consecutive K2-eligible units (stride 1, Cb >= 128, block in
-    ``pallas_blocks``) gathered into one chain per block."""
+    ``pallas_blocks``) gathered into one chain per block. Each step's
+    "next" is the ``Preact`` of the unit after it (None for the last),
+    which its last conv quantises; "first" is the first unit's, the one
+    standalone pre-activation pass."""
     steps: List[Dict] = []
     chain: Optional[Dict] = None
     depth_in = qp["root/w"].shape[-1]
@@ -297,21 +313,27 @@ def prepare_int8_static(qp: Dict[str, torch.Tensor],
             continue
         chain = None
         steps.append(_xla_unit(qp, scales, pre, stride, has_shortcut))
+    for step, following in zip(steps, steps[1:] + [None]):
+        step["next"] = None if following is None else _step_preact(following)
     head = {k: qp[k] for k in ("root/w", "root/b", "postnorm/A", "postnorm/B")}
-    return {"head": head, "steps": steps}
+    return {"head": head, "first": _step_preact(steps[0]), "steps": steps}
 
 
 @torch.no_grad()
 def run_int8_static(plan: Dict, images: torch.Tensor) -> torch.Tensor:
-    """The static-scale trunk on a ``prepare_int8_static`` plan."""
+    """The static-scale trunk on a ``prepare_int8_static`` plan: one
+    standalone pre-activation pass, after the root; every later one is
+    fused into the conv that produces its input."""
     x = _root(plan["head"], images)
+    first = plan["first"]
+    pq = preact_quant(x, first.pa, first.pb, first.s, mode=first.mode)
     for u in plan["steps"]:
         if u["kind"] == "k2":
-            x = fused_block(x, u["params"], h=x.shape[1], w=x.shape[2],
-                            unit_specs=tuple(u["specs"]))
+            x, pq = fused_block_pq(x, u["params"], h=x.shape[1],
+                                   w=x.shape[2], unit_specs=tuple(u["specs"]),
+                                   pq=pq, next_preact=u["next"])
             continue
         stride = u["stride"]
-        pq = preact_quant(x, u["pa"], u["pb"], u["s_p"], mode=1)
         if "wsc" in u:
             shortcut = conv_s8(pq, u["wsc"], stride, epilogue="dequant",
                                mul=u["msc"], add=u["asc"])
@@ -321,8 +343,9 @@ def run_int8_static(plan: Dict, images: torch.Tensor) -> torch.Tensor:
                     add=u["a1"], relu=True)
         h = conv_s8(h, u["w2"], stride, epilogue="requant", mul=u["m2"],
                     add=u["a2"], relu=True)
-        x = conv_s8(h, u["w3"], 1, epilogue="dequant", mul=u["m3"],
-                    add=u["a3"], residual=shortcut)
+        out = conv_s8(h, u["w3"], 1, epilogue="dequant", mul=u["m3"],
+                      add=u["a3"], residual=shortcut, preact=u["next"])
+        x, pq = out if u["next"] is not None else (out, None)
     return _head(plan["head"], x)
 
 

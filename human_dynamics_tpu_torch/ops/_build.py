@@ -2,10 +2,12 @@
 
 Each source under ``csrc/`` is compiled on first use into a shared library
 with a plain C interface, in ``_build/`` beside this file. The file name
-carries a hash of the source and the flags, so an edited source or flag
-rebuilds and an unchanged one is loaded from the cache. Nothing here runs
-at import time, and nothing falls back: a missing ``nvcc`` or a failed
-compile raises.
+carries a hash of the source, of every ``.cuh`` header under ``csrc/`` and
+of the flags, so an edited source, header or flag rebuilds and an unchanged
+one is loaded from the cache. No ``-lcuda``: the one driver call the
+kernels need (``cuTensorMapEncodeTiled``) is found through the runtime's
+``cudaGetDriverEntryPoint``. Nothing here runs at import time, and nothing
+falls back: a missing ``nvcc`` or a failed compile raises.
 """
 
 from __future__ import annotations
@@ -61,6 +63,19 @@ def find_nvcc() -> str:
     )
 
 
+def _source_key(src: str) -> str:
+    """Hash of a source, every header under ``csrc/`` (any of them may be
+    included) and the flags: an edited header rebuilds too."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0")
+            h.update(f.read() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_kernel_libraries(names: Sequence[str]) -> List[_Loaded]:
     """Build (or load from the cache) ``csrc/<name>.cu`` for every name and
     return the loaded libraries with their build info. The nvcc processes
@@ -73,11 +88,7 @@ def load_kernel_libraries(names: Sequence[str]) -> List[_Loaded]:
             if name in _LOADED or name in jobs:
                 continue
             src = os.path.join(CSRC_DIR, name + ".cu")
-            with open(src, "rb") as f:
-                source = f.read()
-            key = hashlib.sha256(
-                source + "\0".join(NVCC_FLAGS).encode()
-            ).hexdigest()[:16]
+            key = _source_key(src)
             lib_path = os.path.join(BUILD_DIR, f"lib{name}_{key}.so")
             if os.path.exists(lib_path):
                 jobs[name] = (lib_path, None, None, None)

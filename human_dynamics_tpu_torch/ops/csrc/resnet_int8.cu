@@ -1,15 +1,18 @@
 // int8 ResNet-50 v2 kernels for Hopper (sm_90a): an implicit-GEMM int8
-// convolution with per-output-channel epilogues, and the pre-activation +
-// quantisation pass ahead of it.
+// convolution on warpgroup MMAs with per-output-channel epilogues (and,
+// optionally, the next unit's pre-activation quantiser fused into them), and
+// the standalone pre-activation + quantisation pass.
 //
 // Replaces, together with the wrapper human_dynamics_tpu_torch/ops/resnet_int8_cuda.py:
 // - the Pallas TPU kernel _chained_block_kernel
 //   (human_dynamics_tpu/ops/resnet_int8_pallas.py: _unit_body, _conv3x3_planar):
-//   K2 is one preact_quant launch and three or four conv launches per unit,
-//   with the kernel's f32 multiply-adds done as explicit fused multiply-adds;
+//   K2 is three or four conv launches per unit (the first unit of a chain
+//   also one preact_quant launch), with the kernel's f32 multiply-adds done
+//   as explicit fused multiply-adds;
 // - the XLA integer convolutions of human_dynamics_tpu/models/resnet_int8.py
-//   (_conv_s8, requant, dequant) for the units K2 does not take, with the
-//   epilogue multiply-adds done as a separate multiply and add.
+//   (_conv_s8, requant, dequant) and its preact + quant, for the units K2
+//   does not take, with the epilogue multiply-adds done as a separate
+//   multiply and add.
 //
 // conv: out[m, co] = epilogue(sum_k A[m, k] * Wt[co, k]), int32 accumulation.
 //   A is the implicit im2col view of x (N, H, W, Cin) int8 NHWC: row m is an
@@ -19,31 +22,50 @@
 //   both sides, which is SAME at stride 1 and slim conv2d_same at stride 2.
 //   Wt is the weight as (Cout, K) with K contiguous.
 //
-// What bounds it: operations. The trunk's convs at 120 frames of 224x224
-// are ~0.98 TOP of int8 multiply-adds against ~0.3 GB of compulsory
-// traffic, so the floor is the tensor cores' 1,979 TOP/s (~0.5 ms), far
-// above the 3.35 TB/s memory floor (~0.1 ms).
+// What bounds it: bytes for most of the trunk's 1x1 convs (a bf16 residual
+// in and a bf16 map out per element, against K = 64-512 int8 MACs), int8
+// tensor-core operations for the 3x3 convs and the 1x1 convs with K >= 1024.
 //
-// Design (simple and correct first; no TMA, no wgmma):
-// - Tensor cores through mma.sync.m16n8k32 s8 x s8 -> s32.
-// - Block tile 128 (pixels) x BN (channels, 128 or 64) x 64 (K bytes),
-//   8 warps of 32 x BN/2; two shared-memory stages filled by 16-byte
-//   cp.async with zero fill for padding taps and ragged edges.
-// - Shared rows are padded 64 -> 80 bytes so that the 32-bit fragment
-//   loads of 8 rows x 4 threads hit 32 distinct banks.
-// - Intermediates of a unit go through device memory (one conv launch per
-//   conv); keeping the unit's chain on chip is later work.
+// Design (hopper_s8.cuh has the building blocks):
+// - Block tile 128 pixels x BN (64 or 128) output channels, 256 threads =
+//   two warpgroups of 64 x BN int32 accumulators each, issuing
+//   wgmma.mma_async m64nNk32 s8 with A and B in shared memory.
+// - K in slices of BK bytes (128 with the 128-byte swizzle; 64 with the
+//   64-byte swizzle on the TMA path where Cin is not a multiple of 128,
+//   e.g. block 1's 64 channels), a ring of 3-4 stages with one mbarrier
+//   each and one CTA barrier per slice.
+// - 1x1 stride-1 convs (a plain GEMM, (M, Cin) x (Cout, Cin)^T): A and B by
+//   TMA from 2-D tensor maps built on the host; out-of-bounds rows and
+//   columns (ragged M, Cout and K edges) arrive as zeros.
+// - Every other geometry: B by TMA, A gathered with 16-byte cp.async that
+//   writes the swizzled layout itself, zero fill for padding taps.
+// - Epilogue through shared memory: the accumulators go to the freed ring,
+//   then each thread takes 4-16 consecutive channels of a row (16 bytes of
+//   output, 8 for int8 with Cout % 16 != 0) with their multipliers loaded
+//   once, reads the residual the same way (all its rows' loads in flight
+//   at once, from L2: the tile's residual rows are prefetched there when
+//   the main loop starts), and stores whole lines.
+// - Fused pre-activation: the dequant-with-residual and residual epilogues
+//   can also write the next unit's int8 pre-activation from the bf16 value
+//   they store (1 extra byte per element instead of a pass of 3).
 //
-// Rounding: int32 -> f32 by __int2float_rn, f32 -> int8 by rintf (half to
-// even, as jnp.round), f32 -> bf16 by __float2bfloat16_rn. Every multiply
-// and add names its rounding (__fmul_rn, __fadd_rn, __fmaf_rn), so nvcc's
-// contraction cannot change which operations are fused.
+// Rounding: int32 -> f32 by __int2float_rn, f32 -> int8 half to even as
+// rintf and jnp.round (by a magic-number add, see sat_s8), f32 -> bf16 by
+// __floats2bfloat162_rn. Every multiply and add names its rounding
+// (__fmul_rn, __fadd_rn, __fmaf_rn), so nvcc's contraction cannot change
+// which operations are fused; mode 1's division is exact without __fdiv_rn
+// (see quot_clip).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_s8.cuh"
+
 namespace {
+
+using namespace hopper;
 
 // Epilogues (keep in step with resnet_int8_cuda.py).
 constexpr int kEpiInt32 = 0;     // int32 accumulators
@@ -56,10 +78,18 @@ constexpr int kFlagFma = 1;      // requant: fma(y, m, a) instead of y*m + a
 constexpr int kFlagRelu = 2;     // requant: lo = 0; dequant: max(., 0)
 constexpr int kFlagResBf16 = 4;  // residual / shortcut operand is bf16 (else f32)
 
+// Main-loop paths.
+constexpr int kPathTma = 0;      // 1x1 stride 1: A and B by TMA
+constexpr int kPathGather = 1;   // other geometries: A by cp.async gather
+
+// Error codes of the launch functions besides cudaError_t.
+constexpr int kErrNoEncoder = -1;   // cuTensorMapEncodeTiled not found
+constexpr int kErrTensorMap = -2;   // the driver refused a tensor map
+constexpr int kErrTile = -3;        // a path / tile the library does not have
+
 constexpr int kBM = 128;
-constexpr int kBK = 64;
-constexpr int kLds = kBK + 16;   // padded shared row, bytes
 constexpr int kThreads = 256;
+constexpr int kStgPad = 8;       // int32 pad of a staged accumulator row
 
 struct ConvParams {
   const int8_t* x;
@@ -68,297 +98,625 @@ struct ConvParams {
   const float* mul;
   const float* add;
   const void* res;
+  int8_t* pq;           // fused pre-activation output, or null
+  const float* pa;
+  const float* pb;
+  const float* ps;
+  int pmode;
   int n, h, w, cin, cout, ks, stride, pad, ho, wo, k, m;
   int epi, flags;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
+template <int BN, int BK>
+struct Tile {
+  static constexpr int kStages = BK == 128 ? 3 : 4;
+  static constexpr int kA = kBM * BK;
+  static constexpr int kB = BN * BK;
+  static constexpr int kStage = kA + kB;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kStaging = kBM * (BN + kStgPad) * 4;
+  static constexpr int kBars = kRing > kStaging ? kRing : kStaging;
+  // + the barriers + slack to align the base to 1024 bytes.
+  static constexpr int kSmem = kBars + kStages * 8 + 1024;
+  static_assert(kStage % 1024 == 0, "stages must keep 1024-byte alignment");
+  static_assert(BN == 64 || BN == 128, "one m64n64 or m64n128 wgmma per k32");
+};
+
+// clip(rint(v), lo, 127) for an integer lo, as the low byte of the result
+// (two's complement). Clamping first is the same (rint is monotonic and the
+// bounds are integers); adding 1.5 * 2^23, where a float's ulp is 1, rounds
+// half to even as rintf does, and leaves the integer in the low bits:
+// FMA-pipe operations only, no FRND and F2I, which issue at 1/8 the rate.
+__device__ __forceinline__ uint32_t sat_s8(float v, float lo) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(v, lo), 127.f), 12582912.f));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// Four sat_s8 results -> 4 packed int8, a first.
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
+                                          uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// The reciprocal quot_clip works from: RN(1 / s) where s lies in
+// [2^-40, 2^40], else 0, which sends the caller to __fdiv_rn.
+__device__ __forceinline__ float div_recip(float s) {
+  return (s >= 0x1p-40f && s <= 0x1p40f) ? __frcp_rn(s) : 0.f;
 }
 
-__device__ __forceinline__ void mma_s8(int* c, const int* a, const int* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// min(RN(p / s), 256) for a p >= 0 that is not NaN, with y = div_recip(s)
+// nonzero, without a branch. p <= s / 4 gives a quotient at most 0.25 and
+// p >= 256 s one of at least 256, which round and clip to 0 and 127 as the
+// exact quotient would. Between them, p * y refined by two residual steps
+// q' = RN(q + RN(p - s * q) * y) is the correctly rounded quotient: after
+// the first q is within one ulp of p / s, and with y within half an ulp of
+// 1 / s the second rounds correctly (Markstein's theorem), nothing under-
+// or overflowing for s in [2^-40, 2^40]. Five FMA-pipe operations, where
+// __fdiv_rn takes a 1/8-rate reciprocal, a range check and a branch per
+// element, and its slow path for p = 0 (half the values, after the ReLU).
+__device__ __forceinline__ float quot_clip(float p, float s, float y) {
+  float q = __fmul_rn(p, y);
+  q = __fmaf_rn(__fmaf_rn(-s, q, p), y, q);
+  q = __fmaf_rn(__fmaf_rn(-s, q, p), y, q);
+  return p <= 0.25f * s ? 0.f : (p >= 256.f * s ? 256.f : q);
 }
 
-__device__ __forceinline__ int8_t sat_s8(float v, float lo) {
-  return static_cast<int8_t>(fminf(fmaxf(rintf(v), lo), 127.f));
+// Two bf16 roundings in one conversion: (bf16(x), bf16(y)) as f32.
+__device__ __forceinline__ float2 bf16_round2(float x, float y) {
+  return __bfloat1622float2(__floats2bfloat162_rn(x, y));
 }
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// Mode 1's pre-activation p = max(bf16(bf16(v * a) + b), 0) of channels
+// j and j + 1.
+__device__ __forceinline__ float2 preact_p2(const float (&v)[8],
+                                            const float (&a)[8],
+                                            const float (&b)[8], int j) {
+  const float2 t = bf16_round2(__fmul_rn(v[j], a[j]),
+                               __fmul_rn(v[j + 1], a[j + 1]));
+  const float2 u = bf16_round2(__fadd_rn(t.x, b[j]), __fadd_rn(t.y, b[j + 1]));
+  return make_float2(fmaxf(u.x, 0.f), fmaxf(u.y, 0.f));
 }
 
-// Epilogue for the output pair (row m, columns c and c + 1).
-__device__ __forceinline__ void store_pair(const ConvParams& p, size_t o,
-                                           int acc0, int acc1, float m0,
-                                           float m1, float a0, float a1) {
-  const float y0 = __int2float_rn(acc0), y1 = __int2float_rn(acc1);
+// Pre-activation + quantisation of 8 bf16 values v (held as f32), packed
+// as 8 int8:
+//   mode 0 (K2, _unit_body): clip(rint(max(fma(v, a, b), 0)), 0, 127)
+//   mode 1 (XLA static path): clip(rint(p / s), 0, 127), p as preact_p2,
+//          with a and b bf16 values held as f32 and y = div_recip(s)
+__device__ __forceinline__ uint2 preact_q8(const float (&v)[8],
+                                           const float (&pa)[8],
+                                           const float (&pb)[8], float s,
+                                           float y, int mode) {
+  uint32_t q[8];
+  if (mode == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      q[j] = sat_s8(fmaxf(__fmaf_rn(v[j], pa[j], pb[j]), 0.f), 0.f);
+  } else if (y != 0.f) {
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      const float2 p = preact_p2(v, pa, pb, j);
+      q[j] = sat_s8(quot_clip(p.x, s, y), 0.f);
+      q[j + 1] = sat_s8(quot_clip(p.y, s, y), 0.f);
+    }
+  } else {  // s outside [2^-40, 2^40]
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      const float2 p = preact_p2(v, pa, pb, j);
+      q[j] = sat_s8(__fdiv_rn(p.x, s), 0.f);
+      q[j + 1] = sat_s8(__fdiv_rn(p.y, s), 0.f);
+    }
+  }
+  return make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
+}
+
+// Chunk j of row r of a swizzled K-major tile with BK-byte rows.
+template <int BK>
+__device__ __forceinline__ int swizzled(int r, int j) {
+  return BK == 128 ? r * 128 + ((j ^ (r & 7)) << 4)
+                   : r * 64 + ((j ^ ((r >> 1) & 3)) << 4);
+}
+
+template <int C>
+__device__ __forceinline__ void load_ints(const int* s, int (&v)[C]) {
+#pragma unroll
+  for (int i = 0; i < C; i += 4) {
+    const int4 q = *reinterpret_cast<const int4*>(s + i);
+    v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void load_cols(const float* src, int c, int n,
+                                          float (&v)[C]) {
+#pragma unroll
+  for (int j = 0; j < C; ++j) v[j] = j < n ? __ldg(src + c + j) : 0.f;
+}
+
+// The bf16-output epilogues (dequant, residual) of one tile, 8 channels a
+// thread: every residual row this thread needs is loaded before the first
+// is used, so kIt loads are in flight at once.
+template <int BN, bool kResF32>
+__device__ __forceinline__ void epilogue_bf16(const ConvParams& p,
+                                              const int* stg, int m0,
+                                              int n0) {
+  constexpr int C = 8, kCh = BN / C, kStep = kThreads / kCh;
+  constexpr int kIt = kBM / kStep, kLd = BN + kStgPad;
+  const int tid = threadIdx.x;
+  const int cl = (tid % kCh) * C, c = n0 + cl, r0 = tid / kCh;
+  if (c >= p.cout) return;
+  const bool dequant = p.epi == kEpiDequant;
+  const bool relu = p.flags & kFlagRelu;
+  const bool has_res = p.res != nullptr;
+  uint4 raw[kIt][kResF32 ? 2 : 1] = {};
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    const int m = m0 + r0 + i * kStep;
+    if (has_res && m < p.m) {
+      const size_t o = (size_t)m * p.cout + c;
+      if constexpr (kResF32) {
+        const uint4* src =
+            reinterpret_cast<const uint4*>(static_cast<const float*>(p.res) + o);
+        raw[i][0] = src[0];
+        raw[i][1] = src[1];
+      } else {
+        raw[i][0] = *reinterpret_cast<const uint4*>(
+            static_cast<const __nv_bfloat16*>(p.res) + o);
+      }
+    }
+  }
+  float mv[C], av[C], pa[C], pb[C];
+  load_cols<C>(p.mul, c, C, mv);
+  load_cols<C>(p.add, c, C, av);
+  float ps = 1.f, py = 1.f;
+  if (p.pq != nullptr) {
+    load_cols<C>(p.pa, c, C, pa);
+    load_cols<C>(p.pb, c, C, pb);
+    if (p.pmode == 1) {
+      ps = __ldg(p.ps);
+      py = div_recip(ps);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    const int r = r0 + i * kStep;
+    if (m0 + r >= p.m) break;
+    const size_t o = (size_t)(m0 + r) * p.cout + c;
+    int acc[C];
+    load_ints<C>(stg + r * kLd + cl, acc);
+    float res[C];
+    if constexpr (kResF32) {
+      const float* rf = reinterpret_cast<const float*>(raw[i]);
+#pragma unroll
+      for (int j = 0; j < C; ++j) res[j] = rf[j];
+    } else {
+      const __nv_bfloat162* rb =
+          reinterpret_cast<const __nv_bfloat162*>(&raw[i][0]);
+#pragma unroll
+      for (int j = 0; j < C / 2; ++j) {
+        const float2 f = __bfloat1622float2(rb[j]);
+        res[2 * j] = f.x;
+        res[2 * j + 1] = f.y;
+      }
+    }
+    float v[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const float y = __int2float_rn(acc[j]);
+      if (dequant) {
+        v[j] = __fadd_rn(__fmul_rn(y, mv[j]), av[j]);
+      } else {
+        v[j] = __fadd_rn(__fmaf_rn(y, mv[j], res[j]), av[j]);
+      }
+    }
+    uint4 packed;
+    __nv_bfloat162* ob = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+    for (int j = 0; j < C / 2; ++j) {
+      if (dequant) {
+        // bf16(y*m + a), [relu], [+ residual, rounded once to bf16]
+        float2 d = bf16_round2(v[2 * j], v[2 * j + 1]);
+        if (relu) {
+          d.x = fmaxf(d.x, 0.f);
+          d.y = fmaxf(d.y, 0.f);
+        }
+        if (has_res) {
+          d.x = __fadd_rn(res[2 * j], d.x);
+          d.y = __fadd_rn(res[2 * j + 1], d.y);
+        }
+        ob[j] = __floats2bfloat162_rn(d.x, d.y);
+      } else {
+        ob[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      }
+    }
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + o) = packed;
+    if (p.pq != nullptr) {
+      float stored[C];
+#pragma unroll
+      for (int j = 0; j < C / 2; ++j) {
+        const float2 f = __bfloat1622float2(ob[j]);
+        stored[2 * j] = f.x;
+        stored[2 * j + 1] = f.y;
+      }
+      *reinterpret_cast<uint2*>(p.pq + o) = preact_q8(stored, pa, pb, ps, py,
+                                                     p.pmode);
+    }
+  }
+}
+
+// Epilogue of one 128 x BN tile whose int32 accumulators are staged in
+// shared memory (row stride BN + kStgPad). Thread t takes the C channels
+// starting at column (t % (BN / C)) * C of every (256 / (BN / C))-th row,
+// so its per-column operands are loaded once and a warp's stores cover
+// whole lines.
+template <int BN>
+__device__ __forceinline__ void epilogue(const ConvParams& p, const int* stg,
+                                         int m0, int n0) {
+  constexpr int kLd = BN + kStgPad;
+  const int tid = threadIdx.x;
   switch (p.epi) {
     case kEpiInt32: {
-      *reinterpret_cast<int2*>(static_cast<int*>(p.out) + o) =
-          make_int2(acc0, acc1);
-      break;
+      constexpr int C = 4, kCh = BN / C, kStep = kThreads / kCh;
+      const int cl = (tid % kCh) * C, c = n0 + cl;
+      if (c >= p.cout) return;
+      int* out = static_cast<int*>(p.out);
+      for (int r = tid / kCh; r < kBM && m0 + r < p.m; r += kStep)
+        *reinterpret_cast<int4*>(out + (size_t)(m0 + r) * p.cout + c) =
+            *reinterpret_cast<const int4*>(stg + r * kLd + cl);
+      return;
     }
     case kEpiRequant: {
+      constexpr int C = 16, kCh = BN / C, kStep = kThreads / kCh;
+      const int cl = (tid % kCh) * C, c = n0 + cl;
+      if (c >= p.cout) return;
+      const int nv = min(C, p.cout - c);  // 16, or 8 at the Cout edge
+      const bool vec16 = nv == C && (p.cout & 15) == 0;
+      float mv[C], av[C];
+      load_cols<C>(p.mul, c, nv, mv);
+      load_cols<C>(p.add, c, nv, av);
       const bool fused = p.flags & kFlagFma;
       const float lo = (p.flags & kFlagRelu) ? 0.f : -127.f;
-      const float v0 = fused ? __fmaf_rn(y0, m0, a0) : __fadd_rn(__fmul_rn(y0, m0), a0);
-      const float v1 = fused ? __fmaf_rn(y1, m1, a1) : __fadd_rn(__fmul_rn(y1, m1), a1);
-      char2 q;
-      q.x = sat_s8(v0, lo);
-      q.y = sat_s8(v1, lo);
-      *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) = q;
-      break;
-    }
-    case kEpiDequant: {
-      float v0 = bf16_round(__fadd_rn(__fmul_rn(y0, m0), a0));
-      float v1 = bf16_round(__fadd_rn(__fmul_rn(y1, m1), a1));
-      if (p.flags & kFlagRelu) {
-        v0 = fmaxf(v0, 0.f);
-        v1 = fmaxf(v1, 0.f);
+      for (int r = tid / kCh; r < kBM && m0 + r < p.m; r += kStep) {
+        int acc[C];
+        load_ints<C>(stg + r * kLd + cl, acc);
+        uint32_t q[C];
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const float y = __int2float_rn(acc[j]);
+          const float v = fused ? __fmaf_rn(y, mv[j], av[j])
+                                : __fadd_rn(__fmul_rn(y, mv[j]), av[j]);
+          q[j] = sat_s8(v, lo);
+        }
+        const uint4 packed = make_uint4(
+            pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
+            pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
+        int8_t* dst = static_cast<int8_t*>(p.out) + (size_t)(m0 + r) * p.cout + c;
+        if (vec16) {
+          *reinterpret_cast<uint4*>(dst) = packed;
+        } else {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(packed.x, packed.y);
+          if (nv == C)
+            *reinterpret_cast<uint2*>(dst + 8) = make_uint2(packed.z, packed.w);
+        }
       }
-      if (p.res != nullptr) {  // bf16 + bf16, rounded once to bf16
-        const __nv_bfloat162 r =
-            reinterpret_cast<const __nv_bfloat162*>(p.res)[o / 2];
-        v0 = __fadd_rn(__bfloat162float(r.x), v0);
-        v1 = __fadd_rn(__bfloat162float(r.y), v1);
-      }
-      reinterpret_cast<__nv_bfloat162*>(p.out)[o / 2] =
-          __halves2bfloat162(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
-      break;
+      return;
     }
     case kEpiDequantF32: {
-      reinterpret_cast<float2*>(p.out)[o / 2] =
-          make_float2(__fmaf_rn(y0, m0, a0), __fmaf_rn(y1, m1, a1));
-      break;
-    }
-    case kEpiResidual: {
-      float s0, s1;
-      if (p.flags & kFlagResBf16) {
-        const __nv_bfloat162 r =
-            reinterpret_cast<const __nv_bfloat162*>(p.res)[o / 2];
-        s0 = __bfloat162float(r.x);
-        s1 = __bfloat162float(r.y);
-      } else {
-        const float2 r = reinterpret_cast<const float2*>(p.res)[o / 2];
-        s0 = r.x;
-        s1 = r.y;
+      constexpr int C = 4, kCh = BN / C, kStep = kThreads / kCh;
+      const int cl = (tid % kCh) * C, c = n0 + cl;
+      if (c >= p.cout) return;
+      float mv[C], av[C];
+      load_cols<C>(p.mul, c, C, mv);
+      load_cols<C>(p.add, c, C, av);
+      for (int r = tid / kCh; r < kBM && m0 + r < p.m; r += kStep) {
+        int acc[C];
+        load_ints<C>(stg + r * kLd + cl, acc);
+        float4 v;
+        v.x = __fmaf_rn(__int2float_rn(acc[0]), mv[0], av[0]);
+        v.y = __fmaf_rn(__int2float_rn(acc[1]), mv[1], av[1]);
+        v.z = __fmaf_rn(__int2float_rn(acc[2]), mv[2], av[2]);
+        v.w = __fmaf_rn(__int2float_rn(acc[3]), mv[3], av[3]);
+        *reinterpret_cast<float4*>(static_cast<float*>(p.out) +
+                                   (size_t)(m0 + r) * p.cout + c) = v;
       }
-      const float v0 = __fadd_rn(__fmaf_rn(y0, m0, s0), a0);
-      const float v1 = __fadd_rn(__fmaf_rn(y1, m1, s1), a1);
-      reinterpret_cast<__nv_bfloat162*>(p.out)[o / 2] =
-          __halves2bfloat162(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
-      break;
+      return;
     }
+    case kEpiDequant:
+      epilogue_bf16<BN, false>(p, stg, m0, n0);
+      return;
+    case kEpiResidual:
+      if (p.flags & kFlagResBf16) {
+        epilogue_bf16<BN, false>(p, stg, m0, n0);
+      } else {
+        epilogue_bf16<BN, true>(p, stg, m0, n0);
+      }
+      return;
   }
 }
 
-template <int BN>
-__global__ void __launch_bounds__(kThreads) conv_s8_kernel(const ConvParams p) {
-  constexpr int kNI = BN / 16;              // n8 tiles per warp (warp: 32 x BN/2)
-  constexpr int kBChunks = BN * kBK / 16 / kThreads;  // 16-byte chunks per thread
-  __shared__ __align__(16) int8_t a_s[2][kBM * kLds];
-  __shared__ __align__(16) int8_t b_s[2][BN * kLds];
+template <int BN, int BK, bool kTmaA>
+__global__ void __launch_bounds__(kThreads, 2)
+    conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                      const __grid_constant__ CUtensorMap tm_b,
+                      const ConvParams p, int n_tiles) {
+  using T = Tile<BN, BK>;
+  constexpr int S = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBars);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * BN;
-  const int kc = (tid & 3) * 16;            // this thread's 16 bytes of a row
+  const int wg = tid >> 7;
+  const int m0 = (blockIdx.x / n_tiles) * kBM;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int k_tiles = (p.k + BK - 1) / BK;
 
-  // The two A rows this thread loads: their image, top-left input corner
-  // and whether the output pixel exists.
-  const int8_t* a_base[2];
-  int a_ih[2], a_iw[2];
-  bool a_ok[2];
-  const int hw_out = p.ho * p.wo;
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + (tid >> 2) + i * 64;
-    a_ok[i] = m < p.m;
-    const int mm = a_ok[i] ? m : 0;
-    const int nb = mm / hw_out;
-    const int r = mm - nb * hw_out;
-    const int oy = r / p.wo;
-    const int ox = r - oy * p.wo;
-    a_base[i] = p.x + (size_t)nb * p.h * p.w * p.cin;
-    a_ih[i] = oy * p.stride - p.pad;
-    a_iw[i] = ox * p.stride - p.pad;
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Gather path: this thread's 16-byte chunk column and its A rows (their
+  // image, top-left input corner and whether the output pixel exists).
+  constexpr int kCpr = BK / 16;
+  constexpr int kRowStep = kThreads / kCpr;
+  constexpr int kRows = kBM / kRowStep;
+  const int jc = tid % kCpr;
+  const int8_t* a_base[kRows];
+  int a_ih[kRows], a_iw[kRows];
+  bool a_ok[kRows];
+  if (!kTmaA) {
+    const int hw_out = p.ho * p.wo;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int m = m0 + tid / kCpr + i * kRowStep;
+      a_ok[i] = m < p.m;
+      const int mm = a_ok[i] ? m : 0;
+      const int nb = mm / hw_out;
+      const int r = mm - nb * hw_out;
+      const int oy = r / p.wo;
+      const int ox = r - oy * p.wo;
+      a_base[i] = p.x + (size_t)nb * p.h * p.w * p.cin;
+      a_ih[i] = oy * p.stride - p.pad;
+      a_iw[i] = ox * p.stride - p.pad;
+    }
   }
 
-  auto load_tile = [&](int kt, int stage) {
-    const int k = kt * kBK + kc;
-    const bool k_ok = k < p.k;
-    int tap = 0, ci = 0, ky = 0, kx = 0;
-    if (k_ok) {
-      tap = k / p.cin;
-      ci = k - tap * p.cin;
-      ky = tap / p.ks;
-      kx = tap - ky * p.ks;
+  // Fill stage kt % S with K slice kt.
+  auto issue = [&](int kt) {
+    const int s = kt % S;
+    uint8_t* a_s = smem + s * T::kStage;
+    uint8_t* b_s = a_s + T::kA;
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&full[s], kTmaA ? T::kStage : T::kB);
+      if (kTmaA) tma_load_2d(a_s, &tm_a, kt * BK, m0, &full[s]);
+      tma_load_2d(b_s, &tm_b, kt * BK, n0, &full[s]);
     }
+    if (!kTmaA) {
+      const int k = kt * BK + jc * 16;
+      const bool k_ok = k < p.k;
+      int ci = 0, ky = 0, kx = 0;
+      if (k_ok) {
+        const int tap = k / p.cin;
+        ci = k - tap * p.cin;
+        ky = tap / p.ks;
+        kx = tap - ky * p.ks;
+      }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = (tid >> 2) + i * 64;
-      const int ih = a_ih[i] + ky, iw = a_iw[i] + kx;
-      const bool ok = k_ok && a_ok[i] && ih >= 0 && ih < p.h && iw >= 0 &&
-                      iw < p.w;
-      const int8_t* src =
-          ok ? a_base[i] + ((size_t)ih * p.w + iw) * p.cin + ci : p.x;
-      cp_async16(&a_s[stage][row * kLds + kc], src, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int row = (tid >> 2) + i * 64;
-      const bool ok = k_ok && n0 + row < p.cout;
-      const int8_t* src = ok ? p.wt + (size_t)(n0 + row) * p.k + k : p.wt;
-      cp_async16(&b_s[stage][row * kLds + kc], src, ok);
+      for (int i = 0; i < kRows; ++i) {
+        const int row = tid / kCpr + i * kRowStep;
+        const int ih = a_ih[i] + ky, iw = a_iw[i] + kx;
+        const bool ok = k_ok && a_ok[i] && ih >= 0 && ih < p.h && iw >= 0 &&
+                        iw < p.w;
+        const int8_t* src =
+            ok ? a_base[i] + ((size_t)ih * p.w + iw) * p.cin + ci : p.x;
+        cp_async16(a_s + swizzled<BK>(row, jc), src, ok);
+      }
+      cp_async_commit();
     }
   };
 
-  int acc[2][kNI][4];
+  int acc[BN / 2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < kNI; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
 
-  const int k_tiles = (p.k + kBK - 1) / kBK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < k_tiles) {
-      load_tile(kt + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int kt = 0; kt < S - 1; ++kt) {
+    if (kt < k_tiles) {
+      issue(kt);
+    } else if (!kTmaA) {
+      cp_async_commit();  // keep one cp.async group per slot
     }
-    __syncthreads();
-    const int8_t* as = a_s[stage];
-    const int8_t* bs = b_s[stage];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      int af[2][4], bf[kNI][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + g;
-        const int8_t* p0 = as + r * kLds + kk + t4 * 4;
-        af[mi][0] = *reinterpret_cast<const int*>(p0);
-        af[mi][1] = *reinterpret_cast<const int*>(p0 + 8 * kLds);
-        af[mi][2] = *reinterpret_cast<const int*>(p0 + 16);
-        af[mi][3] = *reinterpret_cast<const int*>(p0 + 8 * kLds + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < kNI; ++ni) {
-        const int c = wn * (BN / 2) + ni * 8 + g;
-        const int8_t* p0 = bs + c * kLds + kk + t4 * 4;
-        bf[ni][0] = *reinterpret_cast<const int*>(p0);
-        bf[ni][1] = *reinterpret_cast<const int*>(p0 + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < kNI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();
   }
-
-  // Epilogue: each thread owns rows (r, r + 8) x columns (c, c + 1) of
-  // every 16 x 8 tile.
-#pragma unroll
-  for (int ni = 0; ni < kNI; ++ni) {
-    const int c = n0 + wn * (BN / 2) + ni * 8 + t4 * 2;
-    if (c >= p.cout) continue;
-    float m0v = 0.f, m1v = 0.f, a0v = 0.f, a1v = 0.f;
-    if (p.epi != kEpiInt32) {
-      m0v = __ldg(p.mul + c);
-      m1v = __ldg(p.mul + c + 1);
-      a0v = __ldg(p.add + c);
-      a1v = __ldg(p.add + c + 1);
+  // The epilogue's residual rows, fetched into L2 while the main loop runs.
+  if (p.res != nullptr && tid < kBM && m0 + tid < p.m) {
+    const int esize = (p.epi == kEpiResidual && !(p.flags & kFlagResBf16)) ? 4 : 2;
+    prefetch_l2(static_cast<const uint8_t*>(p.res) +
+                    ((size_t)(m0 + tid) * p.cout + n0) * esize,
+                min(BN, p.cout - n0) * esize);
+  }
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % S;
+    if (!kTmaA) {
+      cp_async_wait<S - 2>();  // this thread's A chunks of slice kt landed
+      fence_proxy_async();
     }
+    mbar_wait(&full[s], (kt / S) & 1);
+    wgmma_wait<0>();  // this warpgroup's products of slice kt - 1 are done
+    fence_regs<BN / 2>(acc);
+    // One barrier a slice: every thread's A chunks of slice kt are in, and
+    // both warpgroups are done with stage (kt - 1) % S, which is refilled
+    // before slice kt's products are issued.
+    __syncthreads();
+    const int next = kt + S - 1;
+    if (next < k_tiles) {
+      issue(next);
+    } else if (!kTmaA) {
+      cp_async_commit();
+    }
+    const uint8_t* a_s = smem + s * T::kStage + wg * 64 * BK;
+    const uint8_t* b_s = smem + s * T::kStage + T::kA;
+    const uint64_t da = smem_desc<BK>(a_s);
+    const uint64_t db = smem_desc<BK>(b_s);
+    wgmma_fence();
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm * 32 + mi * 16 + g + half * 8;
-        if (m < p.m) {
-          store_pair(p, (size_t)m * p.cout + c, acc[mi][ni][2 * half],
-                     acc[mi][ni][2 * half + 1], m0v, m1v, a0v, a1v);
-        }
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      // +32 bytes of K per step: +2 in the descriptor's 16-byte units.
+      if constexpr (BN == 64) {
+        wgmma_m64n64k32(acc, da + 2 * kk, db + 2 * kk);
+      } else {
+        wgmma_m64n128k32(acc, da + 2 * kk, db + 2 * kk);
       }
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs<BN / 2>(acc);
+  if (!kTmaA) cp_async_wait<0>();
+  __syncthreads();  // the ring is free: stage the accumulators there
+
+  // Accumulator fragment of warpgroup wg: thread (warp w, lane l) holds rows
+  // wg*64 + w*16 + l/4 (+8) and columns 8j + 2(l%4) (+1) of every n8 block j.
+  int* stg = reinterpret_cast<int*>(smem);
+  {
+    constexpr int kLd = BN + kStgPad;
+    const int lane = tid & 31;
+    const int r = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + (lane & 3) * 2;
+      *reinterpret_cast<int2*>(stg + r * kLd + c) =
+          make_int2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<int2*>(stg + (r + 8) * kLd + c) =
+          make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  __syncthreads();
+  epilogue<BN>(p, stg, m0, n0);
+}
+
+// Pre-activation + quantisation, bf16 in, int8 out: thread (x, y) of a
+// block takes channel group x (8 channels: its pa / pb as two 16-byte loads
+// each, once) of every (gridDim.x * blockDim.y)-th row.
+__global__ void __launch_bounds__(256)
+    preact_quant_kernel(const __nv_bfloat16* __restrict__ x,
+                        int8_t* __restrict__ out, const float* __restrict__ pa,
+                        const float* __restrict__ pb,
+                        const float* __restrict__ s, long long rows, int c,
+                        int mode) {
+  const float sv = mode == 1 ? __ldg(s) : 1.f;
+  const float yv = div_recip(sv);
+  for (int g = threadIdx.x; g * 8 < c; g += blockDim.x) {
+    float a[8], b[8];
+    const float4* pa4 = reinterpret_cast<const float4*>(pa + g * 8);
+    const float4* pb4 = reinterpret_cast<const float4*>(pb + g * 8);
+    *reinterpret_cast<float4*>(a) = __ldg(pa4);
+    *reinterpret_cast<float4*>(a + 4) = __ldg(pa4 + 1);
+    *reinterpret_cast<float4*>(b) = __ldg(pb4);
+    *reinterpret_cast<float4*>(b + 4) = __ldg(pb4 + 1);
+    for (long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+         r < rows; r += (long long)gridDim.x * blockDim.y) {
+      const size_t o = (size_t)r * c + g * 8;
+      const uint4 raw = *reinterpret_cast<const uint4*>(x + o);
+      const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(xv[j]);
+      *reinterpret_cast<uint2*>(out + o) = preact_q8(v, a, b, sv, yv, mode);
     }
   }
 }
 
-// Pre-activation + quantisation, 8 channels per thread, bf16 in, int8 out.
-//   mode 0 (K2, _unit_body): clip(rint(max(fma(x, pa, pb), 0)), 0, 127)
-//   mode 1 (XLA static path): p = max(bf16(bf16(x * pa) + pb), 0);
-//          clip(rint(p / s), 0, 127), with pa and pb bf16 values held as f32
-__global__ void preact_quant_kernel(const __nv_bfloat16* __restrict__ x,
-                                    int8_t* __restrict__ out,
-                                    const float* __restrict__ pa,
-                                    const float* __restrict__ pb,
-                                    const float* __restrict__ s,
-                                    long long groups, int c, int mode) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= groups) return;
-  const int c0 = (int)((i * 8) % c);
-  const uint4 raw = reinterpret_cast<const uint4*>(x)[i];
-  const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
-  const float sv = mode == 1 ? __ldg(s) : 1.f;
-  uint2 packed;
-  int8_t* qb = reinterpret_cast<int8_t*>(&packed);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float xf = __bfloat162float(xv[j]);
-    const float a = __ldg(pa + c0 + j), b = __ldg(pb + c0 + j);
-    float v;
-    if (mode == 0) {
-      v = fmaxf(__fmaf_rn(xf, a, b), 0.f);
-    } else {
-      const float t = bf16_round(__fmul_rn(xf, a));
-      v = __fdiv_rn(fmaxf(bf16_round(__fadd_rn(t, b)), 0.f), sv);
-    }
-    qb[j] = sat_s8(v, 0.f);
+// ----------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime, so the
+// library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
   }
-  reinterpret_cast<uint2*>(out)[i] = packed;
+  return fn;
+}
+
+// A row-major int8 (rows, cols) matrix read in (box_rows, bk) tiles,
+// swizzled for wgmma; out-of-bounds elements read as zeros.
+int make_map(CUtensorMap* map, const void* base, int rows, int cols,
+             int box_rows, int bk) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)bk, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      bk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+template <int BN, int BK, bool kTmaA>
+int launch_conv(const ConvParams& p, cudaStream_t st) {
+  using T = Tile<BN, BK>;
+  CUtensorMap tm_a = {}, tm_b = {};
+  int err = make_map(&tm_b, p.wt, p.cout, p.k, BN, BK);
+  if (err == 0 && kTmaA) err = make_map(&tm_a, p.x, p.m, p.cin, kBM, BK);
+  if (err != 0) return err;
+  auto kernel = conv_wgmma_kernel<BN, BK, kTmaA>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_tiles = (p.cout + BN - 1) / BN;
+  const int m_tiles = (p.m + kBM - 1) / kBM;
+  kernel<<<m_tiles * n_tiles, kThreads, T::kSmem, st>>>(tm_a, tm_b, p, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// The tiles conv_plan picks: BN 64 or 128; BK 128, or 64 on the TMA path.
+template <bool kTmaA>
+int launch_path(const ConvParams& p, int bn, int bk, cudaStream_t st) {
+  if (bn == 64 && bk == 128) return launch_conv<64, 128, kTmaA>(p, st);
+  if (bn == 128 && bk == 128) return launch_conv<128, 128, kTmaA>(p, st);
+  if constexpr (kTmaA) {
+    if (bn == 64 && bk == 64) return launch_conv<64, 64, kTmaA>(p, st);
+    if (bn == 128 && bk == 64) return launch_conv<128, 64, kTmaA>(p, st);
+  }
+  return kErrTile;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the conv on `stream`; returns the cudaError_t of the launch.
-// x (n, h, w, cin) int8, wt (cout, ks*ks*cin) int8, out (n, ho, wo, cout) of
-// the epilogue's type; mul/add (cout,) f32 (unused for kEpiInt32); res
-// (n, ho, wo, cout) bf16 or f32, or null. The wrapper checks shapes,
-// alignment (cin % 16 == 0, cout % 8 == 0) and devices.
+// Launches the conv on `stream`; returns 0, a cudaError_t, or one of the
+// kErr codes. x (n, h, w, cin) int8, wt (cout, ks*ks*cin) int8, out
+// (n, ho, wo, cout) of the epilogue's type; mul/add (cout,) f32 (unused for
+// kEpiInt32); res (n, ho, wo, cout) bf16 or f32, or null; pq (n, ho, wo,
+// cout) int8 or null, with pa/pb (cout,) f32 and ps (1,) f32 for pmode 1.
+// path / bn / bk come from the wrapper's conv_plan. The wrapper checks
+// shapes, alignment (cin % 16 == 0, cout % 8 == 0, 16-byte aligned tensors)
+// and devices.
 int resnet_int8_conv_launch(const void* x, const void* wt, void* out,
                             const float* mul, const float* add,
-                            const void* res, int n, int h, int w, int cin,
-                            int cout, int ks, int stride, int ho, int wo,
-                            int epi, int flags, void* stream) {
+                            const void* res, void* pq, const float* pa,
+                            const float* pb, const float* ps, int pmode,
+                            int n, int h, int w, int cin, int cout, int ks,
+                            int stride, int ho, int wo, int epi, int flags,
+                            int path, int bn, int bk, void* stream) {
   ConvParams p;
   p.x = static_cast<const int8_t*>(x);
   p.wt = static_cast<const int8_t*>(wt);
@@ -366,6 +724,11 @@ int resnet_int8_conv_launch(const void* x, const void* wt, void* out,
   p.mul = mul;
   p.add = add;
   p.res = res;
+  p.pq = static_cast<int8_t*>(pq);
+  p.pa = pa;
+  p.pb = pb;
+  p.ps = ps;
+  p.pmode = pmode;
   p.n = n; p.h = h; p.w = w; p.cin = cin; p.cout = cout; p.ks = ks;
   p.stride = stride; p.pad = (ks - 1) / 2; p.ho = ho; p.wo = wo;
   p.k = ks * ks * cin;
@@ -374,36 +737,43 @@ int resnet_int8_conv_launch(const void* x, const void* wt, void* out,
   p.flags = flags;
   if (p.m <= 0 || cout <= 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cout <= 64) {
-    const dim3 grid((p.m + kBM - 1) / kBM, (cout + 63) / 64);
-    conv_s8_kernel<64><<<grid, kThreads, 0, st>>>(p);
-  } else {
-    const dim3 grid((p.m + kBM - 1) / kBM, (cout + 127) / 128);
-    conv_s8_kernel<128><<<grid, kThreads, 0, st>>>(p);
+  if (path == kPathTma) {
+    if (ks != 1 || stride != 1) return kErrTile;
+    return launch_path<true>(p, bn, bk, st);
   }
-  return (int)cudaGetLastError();
+  if (path == kPathGather) return launch_path<false>(p, bn, bk, st);
+  return kErrTile;
 }
 
-// x (total,) bf16 with channels innermost, c % 8 == 0; out (total,) int8.
+// x (rows, c) bf16 with channels innermost, c % 8 == 0; out (rows, c) int8;
+// pa / pb 16-byte aligned.
 int resnet_int8_preact_launch(const void* x, void* out, const float* pa,
                               const float* pb, const float* s,
-                              long long total, int c, int mode, void* stream) {
-  const long long groups = total / 8;
-  if (groups <= 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const long long blocks = (groups + threads - 1) / threads;
-  preact_quant_kernel<<<(unsigned)blocks, threads, 0,
+                              long long rows, int c, int mode, void* stream) {
+  if (rows <= 0 || c <= 0) return (int)cudaSuccess;
+  const int groups = c / 8;
+  const int bx = groups < 256 ? groups : 256;
+  const int by = 256 / bx;
+  long long blocks = (rows + by - 1) / by;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // each thread then loops over rows
+  preact_quant_kernel<<<(unsigned)blocks, dim3(bx, by), 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(out), pa, pb,
-      s, groups, c, mode);
+      s, rows, c, mode);
   return (int)cudaGetLastError();
 }
 
 const char* resnet_int8_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  switch (code) {
+    case kErrNoEncoder: return "cuTensorMapEncodeTiled not found in the driver";
+    case kErrTensorMap: return "cuTensorMapEncodeTiled refused the tensor map";
+    case kErrTile: return "no kernel for this path and tile";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
 }
 
-// Epilogue and flag codes, so the Python wrapper can check that it matches.
+// Epilogue, flag and path codes, so the Python wrapper can check that it
+// matches.
 int resnet_int8_layout(int which) {
   switch (which) {
     case 0: return kEpiInt32;
@@ -414,7 +784,9 @@ int resnet_int8_layout(int which) {
     case 5: return kFlagFma;
     case 6: return kFlagRelu;
     case 7: return kFlagResBf16;
-    default: return -1;
+    case 8: return kPathTma;
+    case 9: return kPathGather;
+    default: return -100;
   }
 }
 

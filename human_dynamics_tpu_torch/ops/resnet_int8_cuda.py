@@ -7,11 +7,18 @@ the XLA integer convolutions of ``human_dynamics_tpu/models/resnet_int8.py``
 ``csrc/resnet_int8.cu``:
 
 - ``conv_s8``: NHWC int8 x (Cout, K) int8 weights -> int32 accumulators,
-  with a per-output-channel f32 epilogue fused in (see ``EPILOGUES``).
-- ``preact_quant``: bf16 residual stream -> folded BN + ReLU -> int8.
+  with a per-output-channel f32 epilogue fused in (see ``EPILOGUES``) and,
+  optionally, the next unit's pre-activation quantiser (``Preact``) on the
+  bf16 value it stores. ``conv_plan`` picks the kernel's path and tile
+  from the geometry: TMA-fed ``wgmma`` for 1x1 stride-1 convs, a
+  cp.async gather feeding the same ``wgmma`` loop for the rest.
+- ``preact_quant``: bf16 residual stream -> folded BN + ReLU -> int8; the
+  standalone pass, for a unit whose input no conv produced.
 - ``fused_block``: K2, a chain of stride-1 pre-activation bottleneck units
-  with static scales: one pre-activation and three or four conv kernel
-  launches per unit, the unit's intermediates through device memory.
+  with static scales: three or four conv kernel launches per unit (the
+  first unit also one pre-activation launch; the later ones get theirs
+  from the previous unit's last conv), the unit's intermediates through
+  device memory.
 
 Weights are k-major, (Cout, K) with K = kh*kw*Cin contiguous in the
 flattened HWIO order: the transpose of the JAX package's (K, Cout) GEMM
@@ -33,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -45,17 +52,70 @@ BLOCK = "resnet_int8_block"
 
 # Kernel launches by wrapper; chip_smoke.py resets and reads them to show
 # that the main path went through the kernels. Every launch fused_block makes
-# inside K2 (one pre-activation and three or four convs per unit) counts
-# under BLOCK, not under CONV or PREACT.
+# inside K2 (a pre-activation for the chain's first unit without one, three
+# or four convs per unit) counts under BLOCK, not under CONV or PREACT.
 LAUNCHES = {CONV: 0, PREACT: 0, BLOCK: 0}
 
-# Epilogue and flag codes of csrc/resnet_int8.cu.
+# Epilogue, flag and path codes of csrc/resnet_int8.cu.
 EPILOGUES = {"int32": 0, "requant": 1, "dequant": 2, "dequant_f32": 3,
              "residual": 4}
 FLAG_FMA, FLAG_RELU, FLAG_RES_BF16 = 1, 2, 4
+PATHS = {"tma": 0, "gather": 1}
+# Conv launches by main-loop path, whatever LAUNCHES counter they count under.
+PATH_LAUNCHES = {path: 0 for path in PATHS}
 _OUT_DTYPE = {"int32": torch.int32, "requant": torch.int8,
               "dequant": torch.bfloat16, "dequant_f32": torch.float32,
               "residual": torch.bfloat16}
+# The epilogues that store the bf16 residual stream, and so can quantise
+# the next unit's pre-activation from it.
+_PREACT_EPILOGUES = ("dequant", "residual")
+
+
+class Preact(NamedTuple):
+    """A unit's pre-activation quantiser operands (see ``preact_quant``):
+    pa, pb (C,) float32; s the (1,) float32 scale of mode 1, else None."""
+
+    pa: torch.Tensor
+    pb: torch.Tensor
+    s: Optional[torch.Tensor]
+    mode: int
+
+
+class ConvPlan(NamedTuple):
+    """How the conv kernel runs one geometry: the main-loop path ("tma":
+    A and B by TMA; "gather": A by a cp.async im2col gather, B by TMA), the
+    tile's output channels ``bn`` and its K slice in bytes ``bk`` (128 with
+    the 128-byte swizzle, 64 with the 64-byte one)."""
+
+    path: str
+    bn: int
+    bk: int
+
+
+def conv_plan(ks: int, stride: int, cin: int, cout: int) -> ConvPlan:
+    """The conv kernel's path and tile for a geometry (pure, no device).
+
+    1x1 stride-1 convs are plain GEMMs over the NHWC rows, which TMA reads
+    as a 2-D (M, Cin) matrix; every other geometry gathers its im2col rows.
+    BK is 128 bytes, except on the TMA path where Cin is not a multiple of
+    128 (block 1's 64 channels would leave half of each 128-byte slice
+    empty): 64 there. The gather fills a slice chunk by chunk across taps,
+    so it keeps 128 (9 taps of 64 channels: 5 slices, not 9). BN is 64 for
+    Cout <= 64, else 128. Raises for what the kernel does not take: Cin not
+    a multiple of 16 (16-byte loads, TMA's stride rule) or Cout not a
+    multiple of 8 (8-channel epilogue chunks).
+    """
+    if cin % 16 or cout % 8 or cin <= 0 or cout <= 0:
+        raise ValueError(
+            f"the conv kernel takes Cin % 16 == 0 and Cout % 8 == 0, got "
+            f"Cin={cin}, Cout={cout}"
+        )
+    if ks < 1 or ks % 2 == 0 or stride < 1:
+        raise ValueError(f"no conv kernel for k={ks}, stride={stride}")
+    path = "tma" if ks == 1 and stride == 1 else "gather"
+    bk = 64 if path == "tma" and cin % 128 else 128
+    return ConvPlan(path, 64 if cout <= 64 else 128, bk)
+
 
 PARAM_KEYS = ("pA", "pB", "w1", "q1m", "q1a", "w2", "q2m", "q2a",
               "w3", "d3m", "d3a")
@@ -112,8 +172,18 @@ def fma_reference(a, b, c):
 
 
 def epilogue_reference(acc, epilogue, mul=None, add=None, *, relu=False,
-                       fma=False, residual=None):
-    """The conv epilogues of the CUDA source, in plain PyTorch."""
+                       fma=False, residual=None,
+                       preact: Optional[Preact] = None):
+    """The conv epilogues of the CUDA source, in plain PyTorch. With
+    ``preact`` (a bf16 epilogue only) it returns (out, the next unit's
+    pre-activation of out)."""
+    out = _epilogue_out(acc, epilogue, mul, add, relu, fma, residual)
+    if preact is None:
+        return out
+    return out, preact_quant_reference(out, *preact[:3], mode=preact.mode)
+
+
+def _epilogue_out(acc, epilogue, mul, add, relu, fma, residual):
     if epilogue == "int32":
         return acc
     y = acc.float()
@@ -132,7 +202,7 @@ def epilogue_reference(acc, epilogue, mul=None, add=None, *, relu=False,
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
-def _check_conv(xq, wt, stride, epilogue, mul, add, residual):
+def _check_conv(xq, wt, stride, epilogue, mul, add, residual, preact=None):
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
     ks, ho, wo = conv_geometry(xq, wt, stride)
@@ -156,6 +226,12 @@ def _check_conv(xq, wt, stride, epilogue, mul, add, residual):
             torch.bfloat16, torch.float32)
         if residual.dtype not in ok:
             raise ValueError(f"residual dtype {residual.dtype}, want one of {ok}")
+    if preact is not None:
+        if epilogue not in _PREACT_EPILOGUES:
+            raise ValueError(
+                f"epilogue {epilogue!r} stores no bf16 stream to quantise; "
+                f"a preact takes {_PREACT_EPILOGUES}")
+        _check_preact_operands(cout, *preact)
     return ks, ho, wo
 
 
@@ -184,7 +260,7 @@ def _kernel_library() -> ctypes.CDLL:
 
     lib = load_kernel_library(KERNEL_NAME).lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.resnet_int8_conv_launch.argtypes = [ptr] * 6 + [i32] * 11 + [ptr]
+    lib.resnet_int8_conv_launch.argtypes = [ptr] * 10 + [i32] * 15 + [ptr]
     lib.resnet_int8_conv_launch.restype = i32
     lib.resnet_int8_preact_launch.argtypes = (
         [ptr] * 5 + [ctypes.c_longlong, i32, i32, ptr])
@@ -193,8 +269,9 @@ def _kernel_library() -> ctypes.CDLL:
     lib.resnet_int8_error_string.restype = ctypes.c_char_p
     lib.resnet_int8_layout.argtypes = [i32]
     lib.resnet_int8_layout.restype = i32
-    layout = tuple(lib.resnet_int8_layout(i) for i in range(8))
-    want = tuple(EPILOGUES.values()) + (FLAG_FMA, FLAG_RELU, FLAG_RES_BF16)
+    layout = tuple(lib.resnet_int8_layout(i) for i in range(10))
+    want = (tuple(EPILOGUES.values()) + (FLAG_FMA, FLAG_RELU, FLAG_RES_BF16)
+            + tuple(PATHS.values()))
     if layout != want:
         raise RuntimeError(
             f"{KERNEL_NAME} was built with codes {layout}, the wrapper "
@@ -215,30 +292,34 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _check_cuda_layout(aligned, others=()):
     """Contiguity of every operand; 16-byte alignment of those the kernels
-    read in 16-byte vectors."""
+    read or write in 16-byte vectors (or through a tensor map)."""
     for t in list(aligned) + list(others):
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous operands")
     for t in aligned:
         if t.data_ptr() % 16:
-            raise ValueError("the CUDA kernels take 16-byte aligned x and wt")
+            raise ValueError("the CUDA kernels take 16-byte aligned tensors "
+                             "where they read or write 16-byte vectors")
 
 
 def _conv_cuda(counter, xq, wt, stride, epilogue, mul=None, add=None, *,
-               relu=False, fma=False, residual=None):
-    """Launch the conv kernel on PyTorch's current stream; the launch
-    counts under LAUNCHES[counter]."""
-    ks, ho, wo = _check_conv(xq, wt, stride, epilogue, mul, add, residual)
+               relu=False, fma=False, residual=None,
+               preact: Optional[Preact] = None):
+    """Launch the conv kernel on PyTorch's current stream, on the path
+    ``conv_plan`` picks; the launch counts under LAUNCHES[counter] and
+    PATH_LAUNCHES[path]. Returns out, or (out, pq) with ``preact``."""
+    ks, ho, wo = _check_conv(xq, wt, stride, epilogue, mul, add, residual,
+                             preact)
     n, h, w, cin = xq.shape
     cout = wt.shape[0]
-    if cin % 16 or cout % 8:
-        raise ValueError(
-            f"the conv kernel takes Cin % 16 == 0 and Cout % 8 == 0, got "
-            f"Cin={cin}, Cout={cout}"
-        )
-    _check_cuda_layout((xq, wt), _operands(mul, add, residual))
-    out = torch.empty((n, ho, wo, cout), dtype=_OUT_DTYPE[epilogue],
-                      device=xq.device)
+    plan = conv_plan(ks, stride, cin, cout)
+    shape = (n, ho, wo, cout)
+    out = torch.empty(shape, dtype=_OUT_DTYPE[epilogue], device=xq.device)
+    pq = (None if preact is None
+          else torch.empty(shape, dtype=torch.int8, device=xq.device))
+    pre = preact if preact is not None else Preact(None, None, None, 0)
+    _check_cuda_layout(_operands(xq, wt, out, residual, pq),
+                       _operands(mul, add, pre.pa, pre.pb, pre.s))
     flags = ((FLAG_FMA if fma else 0) | (FLAG_RELU if relu else 0)
              | (FLAG_RES_BF16 if residual is not None
                 and residual.dtype == torch.bfloat16 else 0))
@@ -247,19 +328,23 @@ def _conv_cuda(counter, xq, wt, stride, epilogue, mul=None, add=None, *,
         stream = torch.cuda.current_stream(xq.device).cuda_stream
         code = lib.resnet_int8_conv_launch(
             xq.data_ptr(), wt.data_ptr(), out.data_ptr(), _ptr(mul),
-            _ptr(add), _ptr(residual), n, h, w, cin, cout, ks, stride, ho,
-            wo, EPILOGUES[epilogue], flags, stream,
+            _ptr(add), _ptr(residual), _ptr(pq), _ptr(pre.pa), _ptr(pre.pb),
+            _ptr(pre.s), pre.mode, n, h, w, cin, cout, ks, stride, ho, wo,
+            EPILOGUES[epilogue], flags, PATHS[plan.path], plan.bn, plan.bk,
+            stream,
         )
     _raise_on(code, CONV)
     LAUNCHES[counter] += 1
-    return out
+    PATH_LAUNCHES[plan.path] += 1
+    return out if preact is None else (out, pq)
 
 
 def conv_s8(xq: torch.Tensor, wt: torch.Tensor, stride: int = 1, *,
             epilogue: str = "int32", mul: Optional[torch.Tensor] = None,
             add: Optional[torch.Tensor] = None, relu: bool = False,
             fma: bool = False,
-            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+            residual: Optional[torch.Tensor] = None,
+            preact: Optional[Preact] = None):
     """int8 conv with int32 accumulation and a fused epilogue.
 
     xq (N, H, W, Cin) int8; wt (Cout, k*k*Cin) int8, k odd; padding
@@ -275,29 +360,38 @@ def conv_s8(xq: torch.Tensor, wt: torch.Tensor, stride: int = 1, *,
     - "dequant_f32": f32 fma(y, mul, add) (K2's projection shortcut);
     - "residual": bf16(fma(y, mul, residual) + add) (K2's last conv),
       residual f32 or bf16.
+
+    With ``preact`` (the "dequant" and "residual" epilogues) it returns
+    (out, pq): pq is ``preact_quant(out, *preact)``, computed in the same
+    pass from the bf16 value stored.
     """
-    tensors = _operands(xq, wt, mul, add, residual)
+    pre = preact if preact is not None else Preact(None, None, None, 0)
+    tensors = _operands(xq, wt, mul, add, residual, pre.pa, pre.pb, pre.s)
     if _device_of(tensors, "conv_s8") == "cpu":
-        _check_conv(xq, wt, stride, epilogue, mul, add, residual)
+        _check_conv(xq, wt, stride, epilogue, mul, add, residual, preact)
         return epilogue_reference(
             conv_s8_reference(xq, wt, stride), epilogue, mul, add,
-            relu=relu, fma=fma, residual=residual,
+            relu=relu, fma=fma, residual=residual, preact=preact,
         )
     return _conv_cuda(CONV, xq, wt, stride, epilogue, mul, add, relu=relu,
-                      fma=fma, residual=residual)
+                      fma=fma, residual=residual, preact=preact)
 
 
-def _check_preact(x, pa, pb, s, mode):
+def _check_preact_operands(c, pa, pb, s, mode):
     if mode not in (0, 1):
         raise ValueError(f"preact mode {mode} is not 0 (K2) or 1 (XLA path)")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"preact_quant takes bf16, got {x.dtype}")
-    c = x.shape[-1]
     for name, t in (("pa", pa), ("pb", pb)):
-        if tuple(t.shape) != (c,) or t.dtype != torch.float32:
+        if (t is None or tuple(t.shape) != (c,)
+                or t.dtype != torch.float32):
             raise ValueError(f"{name} must be ({c},) float32")
     if mode == 1 and (s is None or s.numel() != 1 or s.dtype != torch.float32):
         raise ValueError("mode 1 needs the float32 scale s")
+
+
+def _check_preact(x, pa, pb, s, mode):
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"preact_quant takes bf16, got {x.dtype}")
+    _check_preact_operands(x.shape[-1], pa, pb, s, mode)
 
 
 def preact_quant_reference(x, pa, pb, s=None, *, mode: int = 0):
@@ -317,14 +411,14 @@ def _preact_cuda(counter, x, pa, pb, s=None, *, mode: int = 0):
     c = x.shape[-1]
     if c % 8:
         raise ValueError(f"the preact kernel takes C % 8 == 0, got {c}")
-    _check_cuda_layout((x,), _operands(pa, pb, s))
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    _check_cuda_layout((x, out, pa, pb), _operands(s))
     lib = _kernel_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.resnet_int8_preact_launch(
             x.data_ptr(), out.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-            _ptr(s), x.numel(), c, mode, stream,
+            _ptr(s), x.numel() // max(c, 1), c, mode, stream,
         )
     _raise_on(code, PREACT)
     LAUNCHES[counter] += 1
@@ -410,44 +504,73 @@ def _check_block(x, unit_params, h, w, unit_specs):
         c = p["w3"].shape[0]
 
 
-def _unit_plain(x, p, has_shortcut):
-    pq = preact_quant_reference(x, p["pA"], p["pB"], mode=0)
-    if has_shortcut:
-        shortcut = epilogue_reference(conv_s8_reference(pq, p["wsc"]),
-                                      "dequant_f32", p["dscm"], p["dsca"])
-    else:
-        shortcut = x
-    h1 = epilogue_reference(conv_s8_reference(pq, p["w1"]), "requant",
-                            p["q1m"], p["q1a"], relu=True, fma=True)
-    h2 = epilogue_reference(conv_s8_reference(h1, p["w2"]), "requant",
-                            p["q2m"], p["q2a"], relu=True, fma=True)
-    return epilogue_reference(conv_s8_reference(h2, p["w3"]), "residual",
-                              p["d3m"], p["d3a"], residual=shortcut)
+def unit_preact(p: Dict[str, torch.Tensor]) -> Preact:
+    """The pre-activation of a K2 unit (mode 0) from its operands."""
+    return Preact(p["pA"], p["pB"], None, 0)
 
 
-def _unit_cuda(x, p, has_shortcut):
-    pq = _preact_cuda(BLOCK, x, p["pA"], p["pB"], mode=0)
+def _conv_plain(xq, wt, stride, epilogue, mul=None, add=None, **kw):
+    return epilogue_reference(conv_s8_reference(xq, wt, stride), epilogue,
+                              mul, add, **kw)
+
+
+def _unit(x, pq, p, has_shortcut, nxt, cuda):
+    """One K2 unit on the kernels (``cuda``) or the plain versions. ``pq``
+    is the unit's pre-activation when the previous conv made it, else it is
+    computed here; ``nxt`` is the next unit's ``Preact`` for the last conv
+    to fuse. Returns (out, the next unit's pq or None)."""
+    if cuda:
+        conv = functools.partial(_conv_cuda, BLOCK)
+        if pq is None:
+            pq = _preact_cuda(BLOCK, x, p["pA"], p["pB"], mode=0)
+    else:
+        conv = _conv_plain
+        if pq is None:
+            pq = preact_quant_reference(x, p["pA"], p["pB"], mode=0)
     if has_shortcut:
-        shortcut = _conv_cuda(BLOCK, pq, p["wsc"], 1, "dequant_f32",
-                              p["dscm"], p["dsca"])
+        shortcut = conv(pq, p["wsc"], 1, "dequant_f32", p["dscm"], p["dsca"])
     else:
         shortcut = x
-    h1 = _conv_cuda(BLOCK, pq, p["w1"], 1, "requant", p["q1m"], p["q1a"],
-                    relu=True, fma=True)
-    h2 = _conv_cuda(BLOCK, h1, p["w2"], 1, "requant", p["q2m"], p["q2a"],
-                    relu=True, fma=True)
-    return _conv_cuda(BLOCK, h2, p["w3"], 1, "residual", p["d3m"], p["d3a"],
-                      residual=shortcut)
+    h1 = conv(pq, p["w1"], 1, "requant", p["q1m"], p["q1a"], relu=True,
+              fma=True)
+    h2 = conv(h1, p["w2"], 1, "requant", p["q2m"], p["q2a"], relu=True,
+              fma=True)
+    out = conv(h2, p["w3"], 1, "residual", p["d3m"], p["d3a"],
+               residual=shortcut, preact=nxt)
+    return out if nxt is not None else (out, None)
 
 
 def fused_block_reference(x: torch.Tensor, unit_params: Sequence[Dict], *,
                           h: int, w: int,
                           unit_specs: Sequence[bool]) -> torch.Tensor:
-    """Plain version of ``fused_block``, any device."""
+    """Plain version of ``fused_block``, any device: every unit quantises
+    its own pre-activation."""
     _check_block(x, unit_params, h, w, unit_specs)
     for p, sc in zip(unit_params, unit_specs):
-        x = _unit_plain(x, p, sc)
+        x, _ = _unit(x, None, p, sc, None, cuda=False)
     return x
+
+
+def fused_block_pq(x: torch.Tensor, unit_params: Sequence[Dict], *, h: int,
+                   w: int, unit_specs: Sequence[bool],
+                   pq: Optional[torch.Tensor] = None,
+                   next_preact: Optional[Preact] = None):
+    """``fused_block`` that carries pre-activations across its ends: ``pq``
+    is the first unit's int8 pre-activation of x when the previous conv
+    made it, and ``next_preact`` the operands of the unit after the chain,
+    which the chain's last conv then quantises too. Inside the chain every
+    unit's last conv quantises the next unit's pre-activation. Returns
+    (out, the next unit's pq or None)."""
+    tensors = [x] + [t for p in unit_params for t in p.values()]
+    cuda = _device_of(tensors, "fused_block") == "cuda"
+    _check_block(x, unit_params, h, w, unit_specs)
+    if pq is not None and (pq.shape != x.shape or pq.dtype != torch.int8):
+        raise ValueError(f"pq must be int8 of x's shape {tuple(x.shape)}")
+    last = len(unit_params) - 1
+    for i, (p, sc) in enumerate(zip(unit_params, unit_specs)):
+        nxt = unit_preact(unit_params[i + 1]) if i < last else next_preact
+        x, pq = _unit(x, pq, p, sc, nxt, cuda)
+    return x, pq
 
 
 def fused_block(x: torch.Tensor, unit_params: Sequence[Dict], *, h: int,
@@ -463,14 +586,8 @@ def fused_block(x: torch.Tensor, unit_params: Sequence[Dict], *, h: int,
     Returns:
         (N, H, W, Cout) bf16.
     """
-    tensors = [x] + [t for p in unit_params for t in p.values()]
-    if _device_of(tensors, "fused_block") == "cpu":
-        return fused_block_reference(x, unit_params, h=h, w=w,
-                                     unit_specs=unit_specs)
-    _check_block(x, unit_params, h, w, unit_specs)
-    for p, sc in zip(unit_params, unit_specs):
-        x = _unit_cuda(x, p, sc)
-    return x
+    return fused_block_pq(x, unit_params, h=h, w=w,
+                          unit_specs=unit_specs)[0]
 
 
 def fused_bottleneck_unit(x: torch.Tensor, params: Dict, *, h: int, w: int,

@@ -260,6 +260,198 @@ def test_load_jax_int8_is_strict(trunk):
         load_jax_int8(trunk["qp"], {"root/out": np.ones(2, np.float32)})
 
 
+def _unfused_static(plan, images):
+    """run_int8_static as it was before the pre-activations were fused: a
+    standalone preact_quant per unit (fused_block_reference for K2)."""
+    x = T._root(plan["head"], images)
+    for u in plan["steps"]:
+        if u["kind"] == "k2":
+            x = K.fused_block_reference(x, u["params"], h=x.shape[1],
+                                        w=x.shape[2],
+                                        unit_specs=tuple(u["specs"]))
+            continue
+        stride = u["stride"]
+        pq = K.preact_quant(x, u["pa"], u["pb"], u["s_p"], mode=1)
+        if "wsc" in u:
+            shortcut = K.conv_s8(pq, u["wsc"], stride, epilogue="dequant",
+                                 mul=u["msc"], add=u["asc"])
+        else:
+            shortcut = T._subsample(x, stride)
+        h = K.conv_s8(pq, u["w1"], 1, epilogue="requant", mul=u["m1"],
+                      add=u["a1"], relu=True)
+        h = K.conv_s8(h, u["w2"], stride, epilogue="requant", mul=u["m2"],
+                      add=u["a2"], relu=True)
+        x = K.conv_s8(h, u["w3"], 1, epilogue="dequant", mul=u["m3"],
+                      add=u["a3"], residual=shortcut)
+    return T._head(plan["head"], x)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_fused_preact_plan_equals_unfused(trunk, use_pallas, monkeypatch):
+    """The static trunk with every pre-activation but the first fused into
+    the conv before it: phi bit-equal to the unfused composition, with one
+    standalone preact_quant per call."""
+    plan = T.prepare_int8_static(trunk["tqp"], trunk["tscales"],
+                                 use_pallas=use_pallas)
+    assert plan["steps"][-1]["next"] is None
+    assert all(u["next"] is not None for u in plan["steps"][:-1])
+    assert plan["first"].mode == 1  # block 1 unit 1 is never a K2 unit
+    calls = []
+    real = T.preact_quant
+    monkeypatch.setattr(T, "preact_quant",
+                        lambda *a, **kw: calls.append(a) or real(*a, **kw))
+    got = T.run_int8_static(plan, trunk["x"])
+    assert len(calls) == 1
+    monkeypatch.setattr(T, "preact_quant", real)
+    assert torch.equal(got, _unfused_static(plan, trunk["x"]))
+
+
+def test_conv_plan_covers_the_trunk(trunk, monkeypatch):
+    """conv_plan on every conv call of the static trunk (2x64x64: block 4's
+    M = 8 is ragged): the 1x1 stride-1 convs take the TMA path, the rest
+    the gather; 64-byte K slices exactly on the TMA path where Cin = 64;
+    64-channel tiles exactly where Cout = 64."""
+    calls = []
+    real = T.conv_s8
+    monkeypatch.setattr(T, "conv_s8",
+                        lambda *a, **kw: calls.append(a) or real(*a, **kw))
+    T.apply_int8_static(trunk["tqp"], trunk["tscales"], trunk["x"])
+    assert len(calls) == 52
+    paths = []
+    for args in calls:
+        xq, wt, stride = args
+        ks, ho, wo = K.conv_geometry(xq, wt, stride)
+        cin, cout = xq.shape[-1], wt.shape[0]
+        plan = K.conv_plan(ks, stride, cin, cout)
+        paths.append(plan.path)
+        assert plan.path == ("tma" if (ks, stride) == (1, 1) else "gather")
+        assert plan.bk == (64 if cin == 64 and plan.path == "tma" else 128)
+        assert plan.bn == (64 if cout == 64 else 128)
+        assert cout % plan.bn == 0
+        assert cin % plan.bk == 0 or plan.path == "gather"
+    assert paths.count("tma") == 36 and paths.count("gather") == 16
+    assert any(c[0].shape[0] * c[0].shape[1] * c[0].shape[2] % 128
+               for c in calls if K.conv_geometry(c[0], c[1], c[2])[0] == 1)
+
+
+@pytest.mark.parametrize("ks,stride,cin,cout,want", [
+    (1, 1, 64, 64, ("tma", 64, 64)), (1, 1, 64, 256, ("tma", 128, 64)),
+    (1, 1, 2048, 512, ("tma", 128, 128)), (3, 1, 64, 64, ("gather", 64, 128)),
+    (3, 2, 512, 512, ("gather", 128, 128)), (1, 2, 256, 512,
+                                             ("gather", 128, 128)),
+    (3, 2, 32, 40, ("gather", 64, 128)), (1, 1, 48, 2056, ("tma", 128, 64)),
+])
+def test_conv_plan_geometries(ks, stride, cin, cout, want):
+    assert tuple(K.conv_plan(ks, stride, cin, cout)) == want
+
+
+def test_conv_plan_refuses_what_the_kernel_does_not_take():
+    for args in ((1, 1, 24, 64), (1, 1, 64, 12), (2, 1, 64, 64),
+                 (3, 0, 64, 64)):
+        with pytest.raises(ValueError):
+            K.conv_plan(*args)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("epilogue,res_dtype", [
+    ("dequant", torch.bfloat16), ("dequant", None),
+    ("residual", torch.bfloat16), ("residual", torch.float32),
+])
+def test_fused_epilogue_reference_is_epilogue_then_preact(epilogue, res_dtype,
+                                                          mode):
+    """The plain fused epilogue: (out, pq) with out the plain epilogue and
+    pq preact_quant_reference of out, bit for bit; conv_s8 on the CPU
+    returns the same pair."""
+    g = torch.Generator().manual_seed(mode)
+    x = torch.randint(-127, 128, (2, 5, 6, 32), generator=g, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (24, 9 * 32), generator=g, dtype=torch.int8)
+    mul = torch.rand(24, generator=g) * 1e-5
+    add = torch.randn(24, generator=g)
+    res = (None if res_dtype is None
+           else torch.randn(2, 5, 6, 24, generator=g).to(res_dtype))
+    pa = torch.rand(24, generator=g) + 0.5
+    pb = torch.randn(24, generator=g) * 0.3
+    if mode == 1:
+        pa, pb = pa.to(torch.bfloat16).float(), pb.to(torch.bfloat16).float()
+    s = torch.tensor([0.05]) if mode == 1 else None
+    pre = K.Preact(pa, pb, s, mode)
+    acc = K.conv_s8_reference(x, wt)
+    out, pq = K.epilogue_reference(acc, epilogue, mul, add, residual=res,
+                                   preact=pre)
+    want = K.epilogue_reference(acc, epilogue, mul, add, residual=res)
+    assert torch.equal(out, want)
+    assert torch.equal(pq, K.preact_quant_reference(want, pa, pb, s,
+                                                    mode=mode))
+    assert 0 < int((pq > 0).sum()) < pq.numel()
+    got, got_pq = K.conv_s8(x, wt, epilogue=epilogue, mul=mul, add=add,
+                            residual=res, preact=pre)
+    assert torch.equal(got, out) and torch.equal(got_pq, pq)
+
+
+def test_fused_preact_checks_operands():
+    x = torch.zeros(1, 4, 4, 16, dtype=torch.int8)
+    w = torch.zeros(8, 16, dtype=torch.int8)
+    one = torch.ones(8)
+    with pytest.raises(ValueError, match="no bf16"):
+        K.conv_s8(x, w, epilogue="requant", mul=one, add=one,
+                  preact=K.Preact(one, one, None, 0))
+    with pytest.raises(ValueError, match="pa must be"):
+        K.conv_s8(x, w, epilogue="dequant", mul=one, add=one,
+                  preact=K.Preact(torch.ones(4), one, None, 0))
+    with pytest.raises(ValueError, match="mode 1 needs"):
+        K.conv_s8(x, w, epilogue="dequant", mul=one, add=one,
+                  preact=K.Preact(one, one, None, 1))
+    with pytest.raises(ValueError, match="pq must be"):
+        K.fused_block_pq(torch.zeros(1, 2, 2, 16, dtype=torch.bfloat16),
+                         [_port_unit(_random_unit(np.random.RandomState(0),
+                                                  16, 8, 16))],
+                         h=2, w=2, unit_specs=(True,),
+                         pq=torch.zeros(1, 2, 2, 8, dtype=torch.int8))
+
+
+@pytest.mark.parametrize("has_shortcut", [False, True])
+def test_fused_block_pq_carries_preacts(has_shortcut):
+    """K2's chain with the pre-activations carried in and out: the first
+    unit's pq handed in and the next unit's pq handed out equal the
+    standalone passes, and the chain's output equals fused_block's."""
+    rng = np.random.RandomState(4)
+    units = [_port_unit(_random_unit(rng, 16, 8, 16)) for _ in range(3)]
+    specs = (has_shortcut, False)
+    if not has_shortcut:
+        units[0] = {k: v for k, v in units[0].items() if k in K.PARAM_KEYS}
+    units[1] = {k: v for k, v in units[1].items() if k in K.PARAM_KEYS}
+    x = torch.from_numpy(rng.randn(2, 6, 5, 16).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    pq_in = K.preact_quant_reference(x, units[0]["pA"], units[0]["pB"])
+    nxt = K.unit_preact(units[2])
+    out, pq = K.fused_block_pq(x, units[:2], h=6, w=5, unit_specs=specs,
+                               pq=pq_in, next_preact=nxt)
+    want = K.fused_block(x, units[:2], h=6, w=5, unit_specs=specs)
+    assert torch.equal(out, want)
+    assert torch.equal(pq, K.preact_quant_reference(want, nxt.pa, nxt.pb))
+    out2, none = K.fused_block_pq(x, units[:2], h=6, w=5, unit_specs=specs)
+    assert torch.equal(out2, want) and none is None
+
+
+def test_build_key_covers_every_header(tmp_path, monkeypatch):
+    """The library's cache key changes with the source, with any .cuh
+    header under csrc/ and with nothing else there."""
+    from human_dynamics_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    key = _build._source_key(str(src))
+    (tmp_path / "notes.txt").write_text("not a source")
+    assert _build._source_key(str(src)) == key
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    key2 = _build._source_key(str(src))
+    assert key2 != key
+    src.write_text('#include "h.cuh"\n// edited\n')
+    assert _build._source_key(str(src)) not in (key, key2)
+
+
 def test_to_bf16_casts_floats_only():
     net = torch.nn.Linear(3, 2)
     net.register_buffer("steps", torch.zeros(2, dtype=torch.int64))
@@ -376,7 +568,105 @@ def test_cuda_fused_block_matches_plain(cuda_device, cin, cb, cout, h):
     before = K.LAUNCHES[K.BLOCK]
     got = K.fused_block(x, units, **kw)
     torch.cuda.synchronize()
-    # One pre-activation and three convs per unit, plus the shortcut conv.
-    assert K.LAUNCHES[K.BLOCK] == before + 2 * 4 + has_sc
+    # The first unit's pre-activation, three convs per unit (the first
+    # unit's last conv also quantises the second's pre-activation), plus
+    # the shortcut conv.
+    assert K.LAUNCHES[K.BLOCK] == before + 1 + 2 * 3 + has_sc
     want = K.fused_block_reference(x, units, **kw)
     assert torch.equal(got, want)
+
+
+# (n, h, w, cin, cout, k, stride) for the fused pre-activation: both paths,
+# Cin 64 (64-byte K slices), ragged M (n*h*w not a multiple of 128), Cin
+# below the K slice and a Cout tail.
+CUDA_FUSED = [
+    (2, 56, 56, 64, 256, 1, 1), (5, 7, 7, 512, 2048, 1, 1),
+    (3, 14, 14, 1024, 256, 1, 1), (2, 7, 7, 512, 512, 3, 1),
+    (2, 28, 28, 64, 64, 3, 2), (1, 9, 11, 32, 40, 1, 1),
+]
+
+
+def _preact_operands(dev, c, mode, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pa = torch.rand(c, generator=g) + 0.5
+    pb = torch.randn(c, generator=g) * 0.3
+    if mode == 1:
+        pa, pb = pa.to(torch.bfloat16).float(), pb.to(torch.bfloat16).float()
+    s = torch.tensor([0.05]) if mode == 1 else None
+    return K.Preact(pa.to(dev), pb.to(dev), None if s is None else s.to(dev),
+                    mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", CUDA_FUSED)
+def test_cuda_conv_fused_preact_matches_plain(cuda_device, geom):
+    """The conv on the path conv_plan picks, with the next unit's
+    pre-activation fused into its bf16 epilogues, against
+    epilogue_reference(..., preact=...) (= the epilogue, then
+    preact_quant_reference): both outputs equal."""
+    n, h, w, cin, cout, k, stride = geom
+    x, wt, mul, add = _cuda_inputs(cuda_device, *geom[:6], seed=7)
+    mul = mul * 0.1
+    path = K.conv_plan(k, stride, cin, cout).path
+    acc = K.conv_s8_reference(x, wt, stride)
+    res_bf = torch.randn(acc.shape, device=cuda_device).to(torch.bfloat16)
+    res_f = torch.randn(acc.shape, device=cuda_device)
+    for mode in (0, 1):
+        pre = _preact_operands(cuda_device, cout, mode, seed=mode)
+        for epi, kw in (("dequant", dict(residual=res_bf)),
+                        ("dequant", dict(relu=True)),
+                        ("residual", dict(residual=res_f)),
+                        ("residual", dict(residual=res_bf))):
+            before = dict(K.PATH_LAUNCHES)
+            out, pq = K.conv_s8(x, wt, stride, epilogue=epi, mul=mul,
+                                add=add, preact=pre, **kw)
+            want, want_pq = K.epilogue_reference(acc, epi, mul, add,
+                                                 preact=pre, **kw)
+            torch.cuda.synchronize()
+            assert K.PATH_LAUNCHES[path] == before[path] + 1
+            assert torch.equal(out, want), (mode, epi, kw.keys())
+            assert torch.equal(pq, want_pq), (mode, epi, kw.keys())
+            assert 0 < int((pq > 0).sum()) < pq.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(120, 56, 56, 64), (3, 5, 7, 200),
+                                   (2, 3, 3, 4096)])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_cuda_preact_loads_match_plain(cuda_device, shape, mode):
+    """The standalone pre-activation's channel-group layout: 64 channels
+    (8 groups, 32 rows a block), a group count that does not divide 256,
+    and more groups than threads in a block."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = (torch.randn(shape, generator=g) * 2).to(torch.bfloat16)
+    x = x.to(cuda_device)
+    pre = _preact_operands(cuda_device, shape[-1], mode, seed=3)
+    got = K.preact_quant(x, pre.pa, pre.pb, pre.s, mode=mode)
+    want = K.preact_quant_reference(x, pre.pa, pre.pb, pre.s, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [0.05, 1 / 3, 0.0123, 7.0, 1e-3, 3.3e4, 1e-12,
+                               1e-30])
+def test_cuda_preact_mode1_every_bf16(cuda_device, s):
+    """Mode 1's quotient p / s on every positive finite bf16 p (pa = 1,
+    pb = 0), standalone and fused into a dequant epilogue whose output is
+    its bf16 residual (mul = add = 0): equal to the plain division, for
+    scales inside and outside the kernel's fast range."""
+    p = torch.arange(0x7F80, dtype=torch.int16).view(torch.bfloat16)
+    x = p.reshape(1, 30, 17, 64).to(cuda_device)
+    pre = K.Preact(torch.ones(64, device=cuda_device),
+                   torch.zeros(64, device=cuda_device),
+                   torch.tensor([s], device=cuda_device), 1)
+    want = K.preact_quant_reference(x, *pre[:3], mode=1)
+    got = K.preact_quant(x, *pre[:3], mode=1)
+    xq = torch.ones(1, 30, 17, 16, dtype=torch.int8, device=cuda_device)
+    wt = torch.ones(64, 16, dtype=torch.int8, device=cuda_device)
+    zero = torch.zeros(64, device=cuda_device)
+    out, pq = K.conv_s8(xq, wt, epilogue="dequant", mul=zero, add=zero,
+                        residual=x, preact=pre)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(out, x) and torch.equal(pq, want)
