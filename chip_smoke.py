@@ -10,9 +10,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. Build: compile the kernels of human_dynamics_tpu_torch/ops/csrc with
    nvcc (one process per source, all started together), or load them from
    the cache.
-2. K1 (fused SMPL blend+skin) against its plain PyTorch version on the
-   card, at V=6890 and N = 1440, 21 and the predictor's own N, with matmul
-   TF32 off: vertex planes, verts, joints, j_posed, and one gradient.
+2. K1 (fused SMPL blend+skin, 3xTF32 on the tensor cores) against its
+   plain PyTorch version on the card, at V=6890 and N = 1440, 37, 21, 1 and
+   the predictor's own N, with matmul TF32 off: vertex planes (1e-5, fp32
+   class), verts, joints, j_posed, and one gradient; timed in turns with
+   the plain version, beside the blend GEMM alone through torch.matmul.
 3. The fp32 predictor end to end: full-width HmmrModel(include_resnet=True)
    with seeded random weights, a 480-frame clip of 224x224 uint8 frames,
    use_fused_smpl=True against use_fused_smpl=False; shapes, finiteness,
@@ -59,6 +61,9 @@ N_CALIB = 32
 SMPL_VERTS = 6890
 SMPL_KPS = 25
 TOL = {"verts": 2e-4, "joints": 2e-4, "j_posed": 1e-4}  # tests/test_ops_pallas.py
+# K1's planes against the plain fp32 version: 3xTF32 is fp32-class (a
+# single TF32 product would be off by ~4e-4).
+K1_PLANES_TOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 5e-3, 1e-3
 # K2 against its plain version: expected equal; at most 0.1% of the
 # elements may differ, with rel L2 at most 1e-3.
@@ -68,8 +73,9 @@ K2_MAX_FRAC, K2_MAX_REL = 1e-3, 1e-3
 TRUNK_COS, TRUNK_REL, TRUNK_FP32_COS = 0.995, 0.05, 0.98
 OMEGA_TOL = 0.5  # tests/test_resnet_int8.py:113
 
-# Published peaks of one H100 SXM (dense): int8 tensor cores, FP32 pipe, HBM.
-INT8_OPS, FP32_OPS, HBM_BYTES = 1979e12, 67e12, 3.35e12
+# Published peaks of one H100 SXM (dense): int8 and TF32 tensor cores, FP32
+# pipe, HBM.
+INT8_OPS, TF32_OPS, FP32_OPS, HBM_BYTES = 1979e12, 495e12, 67e12, 3.35e12
 # ~2.8 ms of spinning at 1.755 GHz: longer than the host takes to queue the
 # 10 conv calls that device_ms times behind it.
 SPIN_CYCLES = 5_000_000
@@ -197,7 +203,7 @@ def phase_k1(torch, np, dev, smpl, consts, main_n):
                 torch.from_numpy(theta).to(dev))
 
     plane_err = 0.0
-    for n in (1440, 21, main_n):
+    for n in (1440, 37, 21, 1, main_n):
         beta, theta = inputs(n)
         fused = smpl_cuda.smpl_forward_fused(smpl, beta, theta, consts)
         plain = smpl_forward(smpl, beta, theta)
@@ -212,13 +218,13 @@ def phase_k1(torch, np, dev, smpl, consts, main_n):
         )
         torch.cuda.synchronize()
         print(f"K1 N={n} V={SMPL_VERTS}: max|kernel-plain| planes "
-              f"{planes:.3e}, " + ", ".join(
+              f"{planes:.3e} (tol {K1_PLANES_TOL:g}), " + ", ".join(
                   f"{k} {v:.3e} (tol {TOL[k]:g})" for k, v in errs.items()))
         for k, v in errs.items():
             check(v <= TOL[k], f"K1 {k} error {v} > {TOL[k]} at N={n}")
-        check(planes <= TOL["verts"], f"K1 planes error {planes} at N={n}")
-        if n == main_n:
-            plane_err = planes
+        check(planes <= K1_PLANES_TOL,
+              f"K1 planes error {planes} > {K1_PLANES_TOL} at N={n}")
+        plane_err = max(plane_err, planes)
 
     # One gradient through the autograd.Function against the plain path.
     beta, theta = inputs(21)
@@ -242,20 +248,28 @@ def phase_k1(torch, np, dev, smpl, consts, main_n):
     kernel = lambda: smpl_cuda.blend_skin(*ops)
     plain = lambda: smpl_cuda.blend_skin_reference(*ops)
     p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
+    blend_gemm = cuda_ms(lambda: torch.matmul(coeffs, consts.dirs))
     print(f"K1 N={main_n} V={SMPL_VERTS}: kernel {k1:.4f}/{k2:.4f} ms, "
           f"plain {p1:.4f}/{p2:.4f} ms (CUDA events, 20 launches each)")
     # The function's own work, without the kernel's zero padding
     # (coefficients 217 -> 224, joints 24 -> 32): per vertex and frame, the
-    # blend product and the template add, the 12 x 24 skinning weights and
-    # the 3x4 transform; bytes of the unpadded operands and the 3 planes.
+    # blend and skinning products (2 flop per multiply-add), the template
+    # add and the 3x4 transform; bytes of the unpadded operands and the 3
+    # planes. On the tensor cores each product is three TF32 products.
     n, v = main_n, SMPL_VERTS
     cd, rc, nj = smpl_cuda.COEF_DIM, smpl_cuda.RT_CH, smpl_cuda.NUM_JOINTS
-    flops = n * v * (2 * 3 * cd + 3 + 2 * rc * nj + 18)
+    products = n * v * 2 * (3 * cd + rc * nj)
+    flops = products + n * v * (3 + 18)
     moved = 4 * (n * cd + rc * nj * n + 3 * cd * v + 3 * v + nj * v
                  + 3 * n * v)
-    b_ms, b_by = bound_ms(flops, FP32_OPS, moved)
-    print(f"K1 bound: {flops / 1e9:.2f} GFLOP fp32, {b_ms:.4f} ms "
-          f"({b_by})")
+    b_ms, b_by = bound_ms(3 * products, TF32_OPS, moved)
+    fp32_ms, _ = bound_ms(flops, FP32_OPS, moved)
+    print(f"K1 yardsticks: 3xTF32 tensor-core bound {b_ms:.4f} ms ({b_by}: "
+          f"{3 * products / 1e9:.2f} GFLOP TF32; bytes "
+          f"{moved / HBM_BYTES * 1e3:.4f} ms for {moved / 1e6:.1f} MB); "
+          f"FP32-pipe bound {fp32_ms:.4f} ms ({flops / 1e9:.2f} GFLOP); "
+          f"partial yardstick, not library_ms: the blend GEMM alone, "
+          f"torch.matmul(coeffs, dirs) in fp32, {blend_gemm:.4f} ms")
     return {"max_abs_err": plane_err, "ms": min(k1, k2),
             "plain_ms": min(p1, p2), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}

@@ -8,12 +8,15 @@ work of an SMPL forward pass runs in one hand-written CUDA kernel
     blend_k = rt_k^T @ weights_t              (k in 0..11)
     vert_x  = b0*px + b1*py + b2*pz + b9      (likewise y, z)
 
-The operands keep the JAX kernel's planar layout: coeffs (N, 224) is
+The kernel runs both contractions on the tensor cores (``mma.sync`` TF32
+with every product split in three, 3xTF32, for fp32-class results). The
+operands keep the JAX kernel's planar layout: coeffs (N, 224) is
 beta || vec(R[1:] - I) zero-padded from 217; rt_t (384, N) holds row
 k*32 + joint for the 12 transform channels, joints padded 24 -> 32; dirs
-(3, 224, V); vt (3, 1, V); weights_t (32, V). V is not padded: the kernel
-checks its bounds. Rest joints, Rodrigues, FK and the keypoint regression
-stay in plain PyTorch.
+(3, 224, V); vt (3, 1, V); weights_t (32, V). Neither N nor V is padded:
+the kernel copies rows in pieces as wide as their stride allows and masks
+the ragged edges, so it only needs each operand to start on 16 bytes. Rest
+joints, Rodrigues, FK and the keypoint regression stay in plain PyTorch.
 
 Which version runs is decided by the device of the tensors: CUDA tensors
 launch the kernel, CPU tensors run ``blend_skin_reference``. A failed
@@ -124,6 +127,18 @@ def _check_operands(coeffs, rt_t, dirs, vt, weights_t) -> Tuple[int, int]:
     return n, v
 
 
+def _check_aligned(operands) -> None:
+    """The kernel copies whole 16-byte pieces from the start of each
+    operand; a view that starts elsewhere (a slice) must be cloned."""
+    for name, t in zip(("coeffs", "rt_t", "dirs", "vt", "weights_t"),
+                       operands):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: the CUDA kernel takes operands that start on 16 "
+                "bytes; clone the view"
+            )
+
+
 def _launch_blend_skin_cuda(coeffs, rt_t, dirs, vt, weights_t):
     """Launch the CUDA kernel on PyTorch's current stream."""
     operands = (coeffs, rt_t, dirs, vt, weights_t)
@@ -139,6 +154,7 @@ def _launch_blend_skin_cuda(coeffs, rt_t, dirs, vt, weights_t):
             raise ValueError(f"operands on {t.device} and {device}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous operands")
+    _check_aligned(operands)
 
     lib = _kernel_library()
     out = torch.empty((3, n, v), dtype=torch.float32, device=device)

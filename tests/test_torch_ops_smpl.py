@@ -4,7 +4,9 @@ plain PyTorch version on the card.
 
 Tolerances are those of tests/test_ops_pallas.py: verts and joints 2e-4,
 j_posed 1e-4, rots 1e-5 (float32 sums taken in another order); gradients
-atol 5e-3, rtol 1e-3.
+atol 5e-3, rtol 1e-3. On the card the kernel's vertex planes are held to
+the plain fp32 version at 1e-5: its 3xTF32 products are as close as fp32
+ones, while a dropped lo term (one TF32 product) would be off by ~4e-4.
 
 The JAX reference is imported inside a fixture, so that the CUDA cases of
 this file also run where JAX is not installed:
@@ -30,6 +32,7 @@ ATOL_VERTS = 2e-4
 ATOL_JOINTS = 2e-4
 ATOL_J_POSED = 1e-4
 ATOL_ROTS = 1e-5
+ATOL_PLANES_FP32 = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -86,6 +89,27 @@ def test_fused_matches_jax_pallas(jax_ref, num_verts, block_v, n):
         jmodel, jnp.asarray(beta), jnp.asarray(theta),
         constants=smpl_pallas.prepare_fused_constants(jmodel, block_v),
         block_v=block_v, block_n=16, interpret=True,
+    )
+    model = synthetic_smpl_model(num_verts=num_verts, num_kps=19)
+    got = smpl_forward_fused(
+        model, torch.from_numpy(beta), torch.from_numpy(theta)
+    )
+    assert got.verts.shape == (n, num_verts, 3)
+    _assert_smpl_close(_Np(got), _Np(want))
+
+
+@pytest.mark.parametrize("num_verts,n", [(333, 5), (130, 1), (257, 37)])
+def test_fused_ragged_shapes_match_jax_pallas(jax_ref, num_verts, n):
+    """The CPU path at shapes the kernel treats apart: an odd V (its rows
+    are copied in 4-byte pieces), a single frame, and an N that is not a
+    multiple of 4 or of the 64-frame tile."""
+    jnp, jsmpl, smpl_pallas = jax_ref
+    beta, theta = _inputs(17, n)
+    jmodel = jsmpl.synthetic_smpl_model(num_verts=num_verts, num_kps=19)
+    want = smpl_pallas.smpl_forward_fused(
+        jmodel, jnp.asarray(beta), jnp.asarray(theta),
+        constants=smpl_pallas.prepare_fused_constants(jmodel, 128),
+        block_v=128, block_n=16, interpret=True,
     )
     model = synthetic_smpl_model(num_verts=num_verts, num_kps=19)
     got = smpl_forward_fused(
@@ -200,6 +224,22 @@ def test_cuda_launcher_rejects_cpu_tensors():
         )
 
 
+def test_cuda_launcher_requires_16_byte_starts():
+    """The kernel copies 16-byte pieces from each operand's start: a view
+    that starts 4 bytes in raises, its clone passes."""
+    model = synthetic_smpl_model(num_verts=64, num_kps=19)
+    c = prepare_fused_constants(model)
+    coeffs = torch.zeros(5 * smpl_cuda.COEF_PAD)
+    rt_t = torch.zeros(smpl_cuda.RT_CH * smpl_cuda.JP, 4)
+    view = coeffs[1:1 + 4 * smpl_cuda.COEF_PAD].view(4, smpl_cuda.COEF_PAD)
+    assert view.is_contiguous()
+    ops = [view, rt_t, c.dirs, c.v_template, c.weights_t]
+    with pytest.raises(ValueError, match="coeffs: .*16 bytes"):
+        smpl_cuda._check_aligned(ops)
+    ops[0] = view.clone()
+    smpl_cuda._check_aligned(ops)
+
+
 def test_blend_skin_checks_operands():
     """Wrong shapes and dtypes raise in the wrapper on any device."""
     model = synthetic_smpl_model(num_verts=64, num_kps=19)
@@ -240,6 +280,43 @@ def test_cuda_kernel_matches_plain(cuda_device, num_verts, n):
         _assert_smpl_close(
             _Np(_to_cpu(got)), _Np(_to_cpu(want))
         )
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "num_verts,n",
+    [(6890, 1536), (6890, 1440), (6890, 37), (700, 21), (6890, 1), (333, 5)],
+)
+def test_cuda_planes_match_plain_fp32(cuda_device, num_verts, n):
+    """The kernel's three vertex planes against the plain version in fp32
+    (matmul TF32 off) at 1e-5: the main path's N = 1536, V = 6890, and
+    ragged shapes (V = 6890 is 2 mod 4, 333 is odd; N = 37, 21, 5, 1 are
+    not multiples of 4 or of the 64-frame tile)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = synthetic_smpl_model(
+            num_verts=num_verts, num_kps=25, device=cuda_device
+        )
+        consts = prepare_fused_constants(model)
+        beta, theta = (
+            torch.from_numpy(a).to(cuda_device) for a in _inputs(11, n)
+        )
+        coeffs, rt_t, _, _ = smpl_cuda.blend_skin_operands(
+            model, consts, beta, theta
+        )
+        ops = (coeffs, rt_t, consts.dirs, consts.v_template, consts.weights_t)
+        before = smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME]
+        got = blend_skin(*ops)
+        torch.cuda.synchronize()
+        assert smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME] == before + 1
+        want = blend_skin_reference(*ops)
+        for g, w in zip(got, want):
+            assert g.shape == (n, num_verts)
+            err = float((g - w).abs().max())
+            assert err <= ATOL_PLANES_FP32, err
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
