@@ -40,7 +40,37 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (52 per 120-frame chunk, 36 of them on the TMA path) and the standalone
    pre-activation (1 per chunk).
 6. Smoke timing of the fp32, bf16_encoder and int8 bench predictors, in
-   turns. With --profile, a torch.profiler breakdown of one int8 clip.
+   turns. With --profile, a torch.profiler breakdown of one int8 clip
+   (and, in phase 8, of one B=1 emission of each configuration).
+7. Streaming, bench config (B=8): the 480-frame clip fed to a
+   StreamingPredictor in pieces of 1, 7, 37 and 64 frames, then flushed;
+   the emissions against predict_all_images (keys, shapes, omegas within
+   the bound below), K1 once per emission, 52 int8 convs and 1 standalone
+   pre-activation per encoder call; every int8 conv and pre-activation
+   call of the stream's encoder (70, 64 and 26 frames) against its plain
+   version.
+8. Streaming latency at B=1 (quantum 8, latency_frames 14), bench config
+   and fp32: one frame per feed, each feed synchronised; the first
+   emission's wall time and the median and quartiles of the next
+   emissions'; the bench config's int8 calls at 14 and 8 frames against
+   their plain versions.
+9. Service: 4 threads each submit a 480-frame clip to a
+   PredictionService(bench) while an open_stream session feeds a fifth;
+   every result equal to a direct call, the stream's within the streaming
+   bound, the stats and launch counts add up; frames/s through the service
+   and by direct calls.
+10. Evaluation: an h36m and a 3dpw test record of 200 frames each, written
+   with the port's data/schema and data/tfrecord, phis from the port's
+   bf16 encoder; Evaluator.run in the --fast configuration with
+   device_metrics on and off on h36m (agreeing at the CPU test's
+   tolerance) and on, mesh errors included, on 3dpw (every metric
+   finite); ms per tube for both modes.
+11. TF32: a full-width model built on the CPU from a seeded generator, the
+   fp32 predictor on 40 frames on the CPU against the card, with cuDNN's
+   allow_tf32 on and off, and on without the predictor's guard that runs
+   its fp32 modules without TF32 (as it ran before the guard): max abs
+   error of omegas, joints and verts; the guarded runs within 1e-4 on
+   omegas.
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -72,6 +102,23 @@ K2_MAX_FRAC, K2_MAX_REL = 1e-3, 1e-3
 # tests/test_resnet_int8.py:238-240), both against fp32.
 TRUNK_COS, TRUNK_REL, TRUNK_FP32_COS = 0.995, 0.05, 0.98
 OMEGA_TOL = 0.5  # tests/test_resnet_int8.py:113
+# Streaming against offline, omegas: tests/test_streaming.py's bound with
+# an fp32 window tail. A bf16 tail (bf16_temporal) meets other GEMM batch
+# sizes in a stream (B windows, not the clip's) and rounds its outputs to
+# bf16, so an omega may flip by a bf16 ulp of its value (2^-6 for |x| in
+# [2, 4)): |stream - offline| <= atol + rtol * |offline|, with atol the
+# bound of tests/test_torch_predictor.py for bf16 roundings of the window
+# tail in another order and rtol one bf16 ulp.
+STREAM_OMEGA_TOL = 1e-3
+STREAM_BF16_OMEGA_TOL = 1.2e-2
+STREAM_BF16_OMEGA_RTOL = 2.0 ** -7
+STREAM_PIECES = (1, 7, 37, 64)
+N_LATENCY = 270          # 33 emissions at B=1
+N_TUBE = 200             # frames per test record
+EVAL_RTOL, EVAL_ATOL = 2e-3, 2e-4  # tests/test_eval_device_metrics.py:82
+N_TF32 = 40
+PROFILE = "--profile" in sys.argv[1:]
+TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
 
 # Published peaks of one H100 SXM (dense): int8 and TF32 tensor cores, FP32
 # pipe, HBM.
@@ -203,7 +250,8 @@ def phase_k1(torch, np, dev, smpl, consts, main_n):
                 torch.from_numpy(theta).to(dev))
 
     plane_err = 0.0
-    for n in (1440, 37, 21, 1, main_n):
+    # 24 and 192: one streaming emission's three heads at B=1 and B=8.
+    for n in (1440, 37, 21, 1, 24, 192, main_n):
         beta, theta = inputs(n)
         fused = smpl_cuda.smpl_forward_fused(smpl, beta, theta, consts)
         plain = smpl_forward(smpl, beta, theta)
@@ -594,15 +642,15 @@ def phase_int8_kernels(torch, model, frames):
     }
 
 
-def profile_clip(torch, pred, frames):
+def profile_run(torch, what, run):
+    """A torch.profiler breakdown of one (warm) call of run()."""
     from torch.profiler import ProfilerActivity, profile
 
-    pred.predict_all_images(frames, as_numpy=False)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict_all_images(frames, as_numpy=False)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device kernels only: the operator rows repeat their kernels' time.
@@ -611,12 +659,401 @@ def profile_clip(torch, pred, frames):
     total = sum(e.self_device_time_total for e in events) / 1e3
     check(total <= wall * 1e3, f"profile: kernel time {total:.2f} ms exceeds "
           f"the traced wall {wall * 1e3:.2f} ms; events are counted twice")
-    print(f"profile, int8 bench config, one clip: wall {wall * 1e3:.2f} ms "
-          f"(traced), kernel time {total:.2f} ms, device idle "
-          f"{(1 - total / (wall * 1e3)) * 100:.1f}% of the wall")
+    print(f"profile, {what}: wall {wall * 1e3:.2f} ms (traced), kernel time "
+          f"{total:.2f} ms in {sum(e.count for e in events)} device events, "
+          f"device idle {(1 - total / (wall * 1e3)) * 100:.1f}% of the wall")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
+
+
+def reset_all(K, smpl_cuda):
+    """Zero every kernel's launch counter."""
+    reset_counts(K)
+    smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME] = 0
+
+
+def read_counts(K, smpl_cuda):
+    return dict(K.LAUNCHES, **smpl_cuda.LAUNCHES), dict(K.PATH_LAUNCHES)
+
+
+def feed_pieces(sp, frames, pieces):
+    """Feed `frames` in pieces cycling through `pieces`, then flush."""
+    emissions, i, j = [], 0, 0
+    while i < len(frames):
+        n = pieces[j % len(pieces)]
+        emissions += sp.feed(frames[i:i + n])
+        i, j = i + n, j + 1
+    return emissions + sp.flush()
+
+
+def stream_encoder_calls(sp, n):
+    """(encoder calls, emissions) of an n-frame stream: a first step of
+    quantum + margin frames, then one per quantum; the flush encodes the
+    rest in one call and emits what is left, margin included."""
+    q, m = sp.quantum, sp.margin
+    steps = 0 if n < q + m else 1 + (n - q - m) // q
+    rest = n - (steps * q + m if steps else 0)
+    left = rest + (m if steps else 0)
+    return steps + (rest > 0), steps + -(-left // q)
+
+
+def check_stream(torch, what, pred, emissions, want):
+    """Concatenated emissions against an offline result: same keys and
+    shapes, omegas within the streaming bound of the predictor's window
+    tail. Returns the max errors."""
+    got = {k: torch.cat([e[k] for e in emissions]) for k in emissions[0]}
+    check(set(got) == set(want), f"{what}: keys {sorted(got)}")
+    for k in want:
+        check(got[k].shape == want[k].shape,
+              f"{what}: {k} {tuple(got[k].shape)} != {tuple(want[k].shape)}")
+    errs = {k: max_abs(got[k], want[k]) for k in sorted(want)}
+    atol, rtol = ((STREAM_BF16_OMEGA_TOL, STREAM_BF16_OMEGA_RTOL)
+                  if pred.bf16_temporal else (STREAM_OMEGA_TOL, 0.0))
+    # The largest error as a share of its element's bound (<= 1 passes).
+    share = float(((got["omegas"] - want["omegas"]).abs()
+                   / (atol + rtol * want["omegas"].abs())).max())
+    print(f"{what}: max|stream - offline| " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + f"; omegas bound atol "
+        f"{atol:g} + rtol {rtol:g} * |offline|, largest share of it "
+        f"{share:.3f}")
+    check(share <= 1.0, f"{what}: omegas differ by up to {errs['omegas']}, "
+          f"{share:.3f} times the bound")
+    return errs
+
+
+def replay_int8_calls(torch, K, calls, what):
+    """Every recorded conv and standalone pre-activation call, the kernel
+    against its plain version: equal outputs (not counted, not timed)."""
+    sizes = set()
+    with torch.no_grad():
+        for name, args, kw in calls:
+            sizes.add(args[0].shape[0])
+            if name == "preact_quant":
+                got = K.preact_quant(*args, **kw)
+                want = K.preact_quant_reference(*args, **kw)
+                check(torch.equal(got, want), f"{what}: preact differs")
+                continue
+            xq, wt, stride = args
+            got = K.conv_s8(xq, wt, stride, **kw)
+            want = K.epilogue_reference(K.conv_s8_reference(xq, wt, stride),
+                                        **kw)
+            for g, w in zip(*(((got,), (want,)) if kw.get("preact") is None
+                              else (got, want))):
+                check(torch.equal(g, w), f"{what}: conv {tuple(xq.shape)} "
+                      f"{kw['epilogue']} differs from its plain version")
+    print(f"{what}: {len(calls)} int8 conv/preact calls at M = "
+          f"{sorted(sizes)} frames equal to their plain versions")
+
+
+def phase_streaming(torch, bench, frames, want, K, smpl_cuda, R):
+    """Phase 7: the bench config streamed at B=8 against offline."""
+    from human_dynamics_tpu_torch.infer import StreamingPredictor
+
+    sp = StreamingPredictor(bench)
+    calls, emits = stream_encoder_calls(sp, len(frames))
+    with Recorder(R, ["conv_s8", "preact_quant"]) as rec:
+        reset_all(K, smpl_cuda)
+        emissions = feed_pieces(sp, frames, STREAM_PIECES)
+        torch.cuda.synchronize()
+        counts, paths = read_counts(K, smpl_cuda)
+    print(f"streaming bench config B={bench.batch_size} (quantum "
+          f"{sp.quantum}, latency_frames {sp.latency_frames}), {len(frames)} "
+          f"frames in pieces of {STREAM_PIECES}: {len(emissions)} emissions "
+          f"of {[len(e['omegas']) for e in emissions]} frames, {calls} "
+          f"encoder calls; launches {counts}, conv by path {paths}")
+    want_counts = {smpl_cuda.KERNEL_NAME: emits, K.CONV: 52 * calls,
+                   K.PREACT: calls, K.BLOCK: 0}
+    check(len(emissions) == emits and counts == want_counts,
+          f"streaming launches: want {want_counts}")
+    errs = check_stream(torch, "streaming bench config", bench, emissions,
+                        want)
+    replay_int8_calls(torch, K, rec.calls, "streaming bench config")
+    return {"emissions": len(emissions), "k1": counts[smpl_cuda.KERNEL_NAME],
+            "omegas_err": errs["omegas"]}
+
+
+def phase_latency(torch, np, name, pred, frames, K, smpl_cuda, R, card):
+    """Phase 8: one frame per feed at B=1; wall time of each emitting feed,
+    synchronised."""
+    from human_dynamics_tpu_torch.infer import StreamingPredictor
+
+    sp = StreamingPredictor(pred)
+    # A warm-up stream (its int8 calls are checked against plain), then
+    # a new stream on the warm predictor.
+    with Recorder(R, ["conv_s8", "preact_quant"]) as rec:
+        for i in range(sp.latency_frames + sp.quantum):
+            sp.feed(frames[i:i + 1])
+        sp.flush()
+        torch.cuda.synchronize()
+    if rec.calls:
+        replay_int8_calls(torch, K, rec.calls, f"streaming B=1 {name}")
+    sp.reset()
+    walls, at, emissions = [], [], []
+    reset_all(K, smpl_cuda)
+    for i in range(N_LATENCY):
+        t0 = time.perf_counter()
+        out = sp.feed(frames[i:i + 1])
+        torch.cuda.synchronize()
+        if out:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            at.append(i + 1)
+            emissions += out
+    counts, _ = read_counts(K, smpl_cuda)
+    emissions += sp.flush()
+    check_stream(torch, f"streaming B=1 {name}", pred, emissions,
+                 pred.predict_all_images(frames[:N_LATENCY], as_numpy=False))
+    if PROFILE:
+        sp.reset()
+        n = sp.latency_frames + sp.quantum - 1
+        sp.feed(frames[:n])
+        profile_run(torch, f"streaming B=1 {name}, one emission",
+                    lambda: check(len(sp.feed(frames[n:n + 1])) == 1,
+                                  "the profiled feed did not emit"))
+    check(at[0] == sp.latency_frames
+          and len(walls) == (N_LATENCY - at[0]) // sp.quantum + 1
+          and all(b - a == sp.quantum for a, b in zip(at, at[1:])),
+          f"B=1 {name}: emissions after frames {at[:4]}...")
+    calls = len(walls) if pred.int8_encoder else 0
+    check(counts[smpl_cuda.KERNEL_NAME] == len(walls)
+          and counts[K.CONV] == 52 * calls and counts[K.PREACT] == calls,
+          f"B=1 {name}: launches {counts} for {len(walls)} emissions")
+    q1, med, q3 = np.percentile(walls[1:], [25, 50, 75])
+    print(f"streaming latency [{card}] B=1 {name}: first emission (the "
+          f"feed of frame {at[0]}: {at[0]} frames encoded + one window "
+          f"group) {walls[0]:.3f} ms; the next {len(walls) - 1} emissions "
+          f"(8 frames encoded + one window group each, synchronised) median "
+          f"{med:.3f} ms, quartiles {q1:.3f}-{q3:.3f} ms; launches {counts}")
+    return {"first_ms": walls[0], "median_ms": float(med), "q1_ms": float(q1),
+            "q3_ms": float(q3), "n": len(walls) - 1}
+
+
+def phase_service(torch, bench, clips, stream_clip, stream_want, K,
+                  smpl_cuda, card):
+    """Phase 9: 4 submitting threads and a live stream on one service, run
+    twice, in turns with the same work done by direct calls."""
+    import threading
+
+    from human_dynamics_tpu_torch.infer import (
+        PredictionService,
+        StreamingPredictor,
+    )
+
+    direct = [bench.predict_all_images(c, as_numpy=False) for c in clips]
+    n_frames = len(clips) * len(clips[0]) + len(stream_clip)
+    chunks = -(-len(clips[0]) // bench.encode_chunk)
+    calls, emits = stream_encoder_calls(StreamingPredictor(bench),
+                                        len(stream_clip))
+    enc = len(clips) * chunks + calls
+    want_counts = {smpl_cuda.KERNEL_NAME: len(clips) + emits,
+                   K.CONV: 52 * enc, K.PREACT: enc, K.BLOCK: 0}
+
+    def by_direct_calls():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in clips:
+            bench.predict_all_images(c, as_numpy=False)
+        feed_pieces(StreamingPredictor(bench), stream_clip, STREAM_PIECES)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def through_service():
+        results, errors = [None] * len(clips), []
+
+        def worker(i):
+            try:
+                results[i] = service.submit(clips[i]).result(timeout=600)
+            except Exception as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(clips))]
+        torch.cuda.synchronize()
+        reset_all(K, smpl_cuda)
+        t0 = time.perf_counter()
+        with PredictionService(bench) as service:
+            session = service.open_stream()
+            for t in threads:
+                t.start()
+            futs, i, j = [], 0, 0
+            while i < len(stream_clip):
+                n = STREAM_PIECES[j % len(STREAM_PIECES)]
+                futs.append(session.feed(stream_clip[i:i + n]))
+                i, j = i + n, j + 1
+            futs.append(session.flush())
+            emissions = [e for f in futs for e in f.result(timeout=600)]
+            for t in threads:
+                t.join(timeout=600)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            stats = service.stats()
+        counts, _ = read_counts(K, smpl_cuda)
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"service: submitters failed: {errors}")
+        for i, (got, want) in enumerate(zip(results, direct)):
+            check(set(got) == set(want), f"service clip {i}: keys differ")
+            for k in want:
+                check(torch.equal(got[k], want[k]),
+                      f"service clip {i}: {k} differs from a direct call")
+        check_stream(torch, "service stream", bench, emissions, stream_want)
+        want_stats = {"submitted": len(clips) + len(futs),
+                      "completed": len(clips) + len(futs), "failed": 0,
+                      "frames": n_frames}
+        check(stats == want_stats, f"service stats {stats}, want "
+              f"{want_stats}")
+        check(counts == want_counts, f"service launches {counts}, want "
+              f"{want_counts}")
+        print(f"service: {len(clips)} submitting threads of "
+              f"{len(clips[0])}-frame clips + one open_stream of "
+              f"{len(stream_clip)} frames ({len(futs)} requests): results "
+              f"equal to direct calls, stats {stats}, launches {counts}")
+        return seconds
+
+    walls = {"direct": [], "service": []}
+    for how in ("direct", "service", "service", "direct"):
+        walls[how].append(by_direct_calls() if how == "direct"
+                          else through_service())
+    print(f"service [{card}], {n_frames} frames, in turns direct, service, "
+          f"service, direct: through the service " + ", ".join(
+              f"{s * 1e3:.2f} ms = {n_frames / s:.1f} frames/s"
+              for s in walls["service"]) + "; by direct calls " + ", ".join(
+              f"{s * 1e3:.2f} ms = {n_frames / s:.1f} frames/s"
+              for s in walls["direct"]))
+    return walls
+
+
+def write_test_records(np, root, phis_by_dataset):
+    """One test record of one tube per dataset, phis from the encoder."""
+    from human_dynamics_tpu_torch.data import (
+        TFRecordWriter,
+        convert_to_example_temporal,
+    )
+
+    names = {"h36m": "S9_Walking_cam03", "3dpw": "downtown_walking_00"}
+    rng = np.random.RandomState(6)
+    for dataset, phis in phis_by_dataset.items():
+        n = len(phis)
+        labels = rng.rand(n, 3, SMPL_KPS).astype(np.float32) * IMG
+        labels[:, 2] = rng.rand(n, SMPL_KPS) > 0.2
+        d = os.path.join(root, dataset, "test")
+        os.makedirs(d)
+        path = os.path.join(d, names[dataset] + ".tfrecord")
+        with TFRecordWriter(path) as w:
+            w.write(convert_to_example_temporal(
+                image_datas=None,
+                image_paths=[f"{i:06d}.jpg" for i in range(n)],
+                image_shapes=np.full((n, 2), IMG),
+                labels=labels,
+                centers=rng.randint(0, IMG, (n, 2)),
+                gt3ds=rng.randn(n, 14, 3).astype(np.float32) * 0.3,
+                scale_factors=rng.rand(n, 2).astype(np.float32),
+                start_pts=rng.randint(0, 50, (n, 2)),
+                cams=rng.rand(n, 3).astype(np.float32),
+                poses=rng.randn(n, 72).astype(np.float32) * 0.2,
+                shape=rng.randn(10).astype(np.float32) * 0.3,
+                phis=phis,
+                time_pts=np.array([0, n]),
+            ))
+
+
+def phase_eval(torch, np, fast, frames, K, smpl_cuda, card):
+    """Phase 10: the Evaluator on h36m and 3dpw phi records."""
+    import tempfile
+
+    from human_dynamics_tpu_torch.eval.harness import Evaluator
+
+    phis = fast.encode_frames(frames[:2 * N_TUBE]).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        records = os.path.join(tmp, "records")
+        write_test_records(np, records, {"h36m": phis[:N_TUBE],
+                                         "3dpw": phis[N_TUBE:]})
+        results, walls = {}, {True: [], False: []}
+        for rep, device_metrics in enumerate((True, False, True, False)):
+            ev = Evaluator(fast, os.path.join(tmp, f"out{rep}"),
+                           device_metrics=device_metrics)
+            reset_all(K, smpl_cuda)
+            t0 = time.perf_counter()
+            results[device_metrics] = ev.run(records, ["h36m"])["h36m"]
+            walls[device_metrics].append((time.perf_counter() - t0) * 1e3)
+            counts, _ = read_counts(K, smpl_cuda)
+            check(counts == {smpl_cuda.KERNEL_NAME: 1, K.CONV: 0,
+                             K.PREACT: 0, K.BLOCK: 0},
+                  f"eval h36m launches {counts}: want K1 once per tube")
+        dev, host = results[True], results[False]
+        check(set(dev) == set(host) and len(dev) == 7,
+              f"eval h36m keys {sorted(dev)} vs {sorted(host)}")
+        for k in sorted(host):
+            check(abs(dev[k] - host[k])
+                  <= EVAL_ATOL + EVAL_RTOL * abs(host[k]),
+                  f"eval h36m {k}: device {dev[k]} vs numpy {host[k]}")
+        print(f"eval h36m, device_metrics on vs off (rtol {EVAL_RTOL}, atol "
+              f"{EVAL_ATOL}): " + ", ".join(
+                  f"{k} {dev[k]:.5f}/{host[k]:.5f}" for k in sorted(host)))
+        ev = Evaluator(fast, os.path.join(tmp, "out_3dpw"),
+                       device_metrics=True)
+        reset_all(K, smpl_cuda)
+        tdpw = ev.run(records, ["3dpw"])["3dpw"]
+        counts, _ = read_counts(K, smpl_cuda)
+        check(counts[smpl_cuda.KERNEL_NAME] == 1,
+              f"eval 3dpw launches {counts}")
+        check(len(tdpw) == 9 and all(np.isfinite(v) for v in tdpw.values()),
+              f"eval 3dpw (mesh included): {tdpw}")
+        print("eval 3dpw, device_metrics, mesh included: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in sorted(tdpw.items())))
+    print(f"eval [{card}] one {N_TUBE}-frame h36m tube (--fast: fused SMPL + "
+          f"bf16 encoder, phi records; record read, prediction, metrics), "
+          f"in turns device, numpy, device, numpy: device_metrics "
+          f"{', '.join(f'{w:.2f}' for w in walls[True])} ms, numpy metrics "
+          f"{', '.join(f'{w:.2f}' for w in walls[False])} ms per tube (the "
+          f"first device run pays one-time setup)")
+    return {"device_ms": walls[True][-1], "numpy_ms": walls[False][-1]}
+
+
+def phase_tf32(torch, np, dev):
+    """Phase 11: the fp32 predictor on the card against the CPU, cuDNN's
+    TF32 on and off."""
+    import contextlib
+
+    from human_dynamics_tpu_torch.core import synthetic_smpl_model
+    from human_dynamics_tpu_torch.infer import HmmrPredictor
+    from human_dynamics_tpu_torch.infer import predictor as P
+    from human_dynamics_tpu_torch.models import HmmrModel
+
+    model = HmmrModel(include_resnet=True, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS)
+    clip = torch.randint(0, 256, (N_TF32, IMG, IMG, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(4))
+    t0 = time.perf_counter()
+    ref = HmmrPredictor(model, None, smpl, device="cpu").predict_all_images(
+        clip, as_numpy=False)
+    cpu_s = time.perf_counter() - t0
+    pred = HmmrPredictor(model, None, smpl, use_fused_smpl=True, device=dev)
+    guard = P._full_fp32
+    runs = {"cudnn.allow_tf32=True, unguarded": (True, contextlib.nullcontext),
+            "cudnn.allow_tf32=True": (True, guard),
+            "cudnn.allow_tf32=False": (False, guard)}
+    prev = torch.backends.cudnn.allow_tf32
+    errs = {}
+    try:
+        for name, (tf32, ctx) in runs.items():
+            torch.backends.cudnn.allow_tf32 = tf32
+            P._full_fp32 = ctx
+            out = pred.predict_all_images(clip.to(dev), as_numpy=False)
+            errs[name] = {k: max_abs(out[k].cpu(), ref[k])
+                          for k in ("omegas", "joints", "verts")}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+        P._full_fp32 = guard
+    for name, e in errs.items():
+        print(f"TF32 check, fp32 predictor, {N_TF32} frames, card vs CPU "
+              f"({cpu_s:.1f} s on the CPU), {name}: " +
+              ", ".join(f"{k} {v:.3e}" for k, v in e.items()) +
+              f" (omegas bound {TF32_OMEGA_TOL:g} when guarded)")
+    for name in list(runs)[1:]:
+        check(errs[name]["omegas"] <= TF32_OMEGA_TOL,
+              f"fp32 predictor, {name}: omegas {errs[name]['omegas']}")
+    return errs
 
 
 def main():
@@ -763,8 +1200,38 @@ def main():
               f"{[round(x * 1e3, 2) for x in ts]})")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    if "--profile" in sys.argv[1:]:
-        profile_clip(torch, bench, frames)
+    if PROFILE:
+        bench.predict_all_images(frames, as_numpy=False)
+        profile_run(torch, "int8 bench config, one clip",
+                    lambda: bench.predict_all_images(frames, as_numpy=False))
+
+    # Phase 7: streaming, bench config, B=8, against offline.
+    from human_dynamics_tpu_torch.models import resnet_int8 as R
+
+    offline = bench.predict_all_images(frames, as_numpy=False)
+    phase_streaming(torch, bench, frames, offline, K, smpl_cuda, R)
+
+    # Phase 8: streaming latency at B=1.
+    b1 = dict(batch_size=1, seq_length=t, use_fused_smpl=True, device=dev)
+    for name, pred in (
+        ("bench config", HmmrPredictor(
+            model, None, smpl, int8_encoder=True, int8_calibration=calib,
+            bf16_temporal=True, **b1)),
+        ("fp32", HmmrPredictor(model, None, smpl, **b1)),
+    ):
+        phase_latency(torch, np, name, pred, frames, K, smpl_cuda, R, card)
+
+    # Phase 9: the service, 4 submitters and a live stream.
+    clips = [torch.randint(0, 256, (N_FRAMES, IMG, IMG, 3), dtype=torch.uint8,
+                           device=dev, generator=gen) for _ in range(4)]
+    phase_service(torch, bench, clips, frames, offline, K, smpl_cuda, card)
+    del clips, offline
+
+    # Phase 10: evaluation in the --fast configuration.
+    phase_eval(torch, np, bf16, frames, K, smpl_cuda, card)
+
+    # Phase 11: TF32 in the fp32 predictor, against the CPU.
+    phase_tf32(torch, np, dev)
 
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [

@@ -15,6 +15,8 @@ Counterpart of ``human_dynamics_tpu/infer/predictor.py``, inference only:
 - Only each window's good centre frames are kept, before the SMPL decode.
 - The present head and the delta heads are decoded in one stacked SMPL
   call; the delta heads are projected with the present camera.
+- The fp32 encoder and the fp32 window tail run without TF32, whatever
+  the process's TF32 settings: they are the JAX package's parity path.
 - The windows are stitched back to (N, ...) per-frame outputs with keys
   cams/joints/kps/poses/shapes/verts/omegas, plus '*_delta' stacked
   (N, D, ...) over the sorted delta_t values.
@@ -22,6 +24,7 @@ Counterpart of ``human_dynamics_tpu/infer/predictor.py``, inference only:
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import warnings
 from typing import Dict, Mapping, Optional
@@ -59,6 +62,24 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """fp32 convolutions and matmuls in full fp32, not TF32, inside. On an
+    H100 with cuDNN's TF32 default the fp32 predictor's omegas were 1.6e-4
+    from the same model's on the CPU, and 7e-7 without TF32 (PERF.md, §7).
+    The flags are process-wide: the predictor's device work runs on one
+    thread (see infer/service.py)."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 def _without_resnet(model: HmmrModel) -> HmmrModel:
@@ -226,15 +247,23 @@ class HmmrPredictor:
                 torch.float32)
         return frames.to(torch.float32)
 
-    def _encode_chunk(self, chunk: torch.Tensor) -> torch.Tensor:
-        """(M, H, W, 3) frames -> (M, 2048) f32 phi."""
+    def _encode_chunk(self, chunk: torch.Tensor,
+                      pad_to: Optional[int] = None) -> torch.Tensor:
+        """(M, H, W, 3) frames -> (M, 2048) f32 phi, in one encoder call.
+
+        Every encoder but the dynamic int8 one is per frame. Dynamic int8
+        scales are per call: with ``pad_to`` they also see zero frames
+        (in the frames' own dtype, before the normalisation) up to
+        ``pad_to``, as the JAX predictor pads its calls.
+        """
         if self._int8_plan is not None:
             return run_int8_static(self._int8_plan, self._normalise(chunk))
         if self._int8_qp is not None:
-            # Dynamic scales are per chunk, so the tail chunk is padded with
-            # zero frames to the full chunk, as the JAX predictor pads it.
             m = chunk.shape[0]
-            chunk = F.pad(chunk, (0, 0, 0, 0, 0, 0, 0, self.encode_chunk - m))
+            if pad_to is not None:
+                if pad_to < m:
+                    raise ValueError(f"cannot pad {m} frames to {pad_to}")
+                chunk = F.pad(chunk, (0, 0, 0, 0, 0, 0, 0, pad_to - m))
             return apply_int8(self._int8_qp, self._normalise(chunk),
                               _wt=self._int8_wt)[:m]
         if self._encoder is None:
@@ -242,7 +271,8 @@ class HmmrPredictor:
         x = self._normalise(chunk)
         if self.bf16_encoder:
             return self._encoder(x.to(torch.bfloat16)).float()
-        return self._encoder(x)
+        with _full_fp32():
+            return self._encoder(x)
 
     @torch.inference_mode()
     def encode_frames(self, images) -> torch.Tensor:
@@ -252,8 +282,11 @@ class HmmrPredictor:
         x*(2/255)-1; anything else is taken as [-1, 1] floats.
         """
         images = torch.as_tensor(images, device=self.device)
+        # Dynamic int8: the tail chunk is padded to the full chunk, as the
+        # JAX predictor pads it.
         return torch.cat([
-            self._encode_chunk(images[i:i + self.encode_chunk])
+            self._encode_chunk(images[i:i + self.encode_chunk],
+                               pad_to=self.encode_chunk)
             for i in range(0, len(images), self.encode_chunk)
         ])
 
@@ -271,8 +304,10 @@ class HmmrPredictor:
         idx = win[:, None] * g + torch.arange(t, device=dev)
         windows = phi_padded[idx]                       # (S*B, T, C)
         if self.bf16_temporal:
-            windows = windows.to(torch.bfloat16)
-        out = self._tail(windows)
+            out = self._tail(windows.to(torch.bfloat16))
+        else:
+            with _full_fp32():
+                out = self._tail(windows)
 
         if self.pred_mode == "hal":
             present, deltas = out.omega_hal, out.omegas_hal_delta

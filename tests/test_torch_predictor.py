@@ -221,6 +221,47 @@ def test_groups_per_step_state_and_device_outputs(phi_models):
                                   a["omegas"])
 
 
+@pytest.mark.parametrize("options,full_fp32", [
+    ({}, (True, True)),
+    (dict(bf16_encoder=True), (False, True)),
+    (dict(bf16_encoder=True, bf16_temporal=True), (False, False)),
+])
+def test_fp32_modules_run_without_tf32(image_models, options, full_fp32):
+    """The fp32 encoder and the fp32 window tail run with cuDNN's and the
+    matmuls' TF32 off, whatever the process's settings, which are restored
+    after; bf16 modules are left to them."""
+    _, _, tm = image_models
+    pred = HmmrPredictor(tm, None, synthetic_smpl_model(num_verts=48,
+                                                        num_kps=25),
+                         batch_size=2, device="cpu", **options)
+    seen = {}
+
+    def record(name):
+        def hook(module, args):
+            seen[name] = (torch.backends.cudnn.allow_tf32,
+                          torch.backends.cuda.matmul.allow_tf32)
+        return hook
+
+    handles = [pred._encoder.register_forward_pre_hook(record("encoder")),
+               pred._tail.register_forward_pre_hook(record("tail"))]
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        pred.predict_all_images(_RAW[:9])
+        after = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+        for h in handles:
+            h.remove()
+    assert after == (True, True)
+    for name, full in zip(("encoder", "tail"), full_fp32):
+        assert seen[name] == ((False, False) if full else (True, True)), name
+
+
 def test_predictor_rejects_unported_options(phi_models):
     """unroll_chunks, int8_root and int8_stream are not ported; the bf16
     and int8 options are."""
@@ -261,19 +302,20 @@ def _run(code_or_args, cwd):
 
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither jax nor flax nor
-    the JAX package."""
+    the JAX package, nor cv2 (the GPU machine has none; only JPEG records
+    and the numpy mesh metric import it, when they run)."""
     code = (
         "import pkgutil, sys, importlib, human_dynamics_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'human_dynamics_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'human_dynamics_tpu', 'cv2'))\n"
         "print(len(mods)); assert not bad, bad\n"
     )
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 32
 
 
 def test_chip_smoke_fails_without_gpu():

@@ -485,12 +485,16 @@ def test_wrappers_check_operands():
 # ---------------------------------------------------------------------------
 
 # (n, h, w, cin, cout, k, stride): the trunk's geometries at small n, plus
-# ragged M and N tiles.
+# ragged M and N tiles, plus the frame counts of a streaming encoder call
+# (8 and 14 at B=1; 70, 64 and a flush's remainder at B=8).
 CUDA_CONVS = [
     (2, 56, 56, 64, 64, 1, 1), (2, 56, 56, 64, 64, 3, 1),
     (2, 56, 56, 64, 64, 3, 2), (2, 56, 56, 256, 512, 1, 2),
     (3, 14, 14, 256, 1024, 1, 1), (3, 7, 7, 512, 512, 3, 1),
     (1, 9, 11, 32, 40, 3, 2),
+    (8, 56, 56, 256, 64, 1, 1), (14, 28, 28, 128, 128, 3, 1),
+    (70, 14, 14, 1024, 256, 1, 1), (64, 28, 28, 128, 128, 3, 2),
+    (26, 7, 7, 512, 512, 3, 1),
 ]
 
 
