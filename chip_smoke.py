@@ -11,10 +11,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    nvcc (one process per source, all started together), or load them from
    the cache.
 2. K1 (fused SMPL blend+skin, 3xTF32 on the tensor cores) against its
-   plain PyTorch version on the card, at V=6890 and N = 1440, 37, 21, 1 and
-   the predictor's own N, with matmul TF32 off: vertex planes (1e-5, fp32
-   class), verts, joints, j_posed, and one gradient; timed in turns with
-   the plain version, beside the blend GEMM alone through torch.matmul.
+   plain PyTorch version on the card, at V=6890 and N = 1440, 37, 21, 1,
+   24, 192, a training step's 640 and the predictor's own N, with matmul
+   TF32 off: vertex planes (1e-5, fp32 class), verts, joints, j_posed, and
+   one gradient; timed in turns with the plain version at the predictor's
+   N (beside the blend GEMM alone through torch.matmul) and at N = 640.
 3. The fp32 predictor end to end: full-width HmmrModel(include_resnet=True)
    with seeded random weights, a 480-frame clip of 224x224 uint8 frames,
    use_fused_smpl=True against use_fused_smpl=False; shapes, finiteness,
@@ -71,11 +72,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    its fp32 modules without TF32 (as it ran before the guard): max abs
    error of omegas, joints and verts; the guarded runs within 1e-4 on
    omegas.
+12. Training, phi mode, at full width: Config(batch_size=8, T=20,
+   feature_dim=2048, num_kps=25, use_fused_smpl=True), random weights from
+   config.seed, a batch made on the card from a seeded generator.
+   compute_losses(train=False) and the gradients of e_loss + d_loss fused
+   against unfused (every loss and every parameter's gradient within
+   GRAD_ATOL/GRAD_RTOL) and the card against the same state on the CPU
+   (losses within 1e-5 relative, gradients within 1e-3 relative in L2, and
+   the Linear outputs whose sign differs counted); K1 once per fused
+   step and never per unfused step; 20 Trainer.steps on the batch with
+   every loss finite and e_loss falling; train.main for 3 steps on phi
+   and mocap records written with the port's data/schema, then a fresh
+   Trainer restores ckpt-3.npz with equal parameters and moments, and the
+   checkpoint drives HmmrPredictor on the card; smoke timing of fp32
+   fused, fp32 unfused and use_bfloat16 fused steps in turns, each step's
+   device-memory increment. With --profile, a torch.profiler breakdown of
+   one fused step with K1's share.
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -117,6 +135,19 @@ N_LATENCY = 270          # 33 emissions at B=1
 N_TUBE = 200             # frames per test record
 EVAL_RTOL, EVAL_ATOL = 2e-3, 2e-4  # tests/test_eval_device_metrics.py:82
 N_TF32 = 40
+# Phase 12: the training step's shapes (K1 sees 4 heads x B*T = 640 rows).
+TRAIN_B, TRAIN_T, TRAIN_C = 8, 20, 2048
+TRAIN_N = 4 * TRAIN_B * TRAIN_T
+N_LEARN = 20
+N_TIMED_STEPS = 5
+# The card's step against the same state on the CPU: each loss within
+# 1e-5 relative; each parameter's gradient within 1e-3 relative in L2
+# norm, not the 1e-4 the CPU test holds the port to JAX at tiny width:
+# at full width a forward difference of ~1e-7 flips the sign of one of the
+# ~1.2e7 Linear outputs that feed a ReLU, and that one flip adds or drops
+# one frame's share of a weight's gradient (measured: 1 flip, 2.06e-4 in
+# L2 on single_view_ief.fc1.weight; ROADMAP Queue 3).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-5, 1e-3
 PROFILE = "--profile" in sys.argv[1:]
 TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
 
@@ -250,8 +281,9 @@ def phase_k1(torch, np, dev, smpl, consts, main_n):
                 torch.from_numpy(theta).to(dev))
 
     plane_err = 0.0
-    # 24 and 192: one streaming emission's three heads at B=1 and B=8.
-    for n in (1440, 37, 21, 1, 24, 192, main_n):
+    # 24 and 192: one streaming emission's three heads at B=1 and B=8;
+    # TRAIN_N: a training step's four heads.
+    for n in (1440, 37, 21, 1, 24, 192, TRAIN_N, main_n):
         beta, theta = inputs(n)
         fused = smpl_cuda.smpl_forward_fused(smpl, beta, theta, consts)
         plain = smpl_forward(smpl, beta, theta)
@@ -289,22 +321,59 @@ def phase_k1(torch, np, dev, smpl, consts, main_n):
               f"K1 gradient in {name} differs by {err}")
 
     # Kernel and plain version at the main path's shape, in turns.
-    beta, theta = inputs(main_n)
-    coeffs, rt_t, _, _ = smpl_cuda.blend_skin_operands(
-        smpl, consts, beta, theta)
-    ops = (coeffs, rt_t, consts.dirs, consts.v_template, consts.weights_t)
+    ops = k1_operands(smpl, consts, *inputs(main_n))
+    k_ms, p_ms = k1_in_turns(torch, ops)
+    blend_gemm = cuda_ms(lambda: torch.matmul(ops[0], consts.dirs))
+    print(f"K1 N={main_n} V={SMPL_VERTS}: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms (CUDA events, 20 launches each, best of two "
+          f"turns)")
+    b_ms, b_by, fp32_ms, products, flops, moved = k1_bound(smpl_cuda, main_n)
+    print(f"K1 yardsticks: 3xTF32 tensor-core bound {b_ms:.4f} ms ({b_by}: "
+          f"{3 * products / 1e9:.2f} GFLOP TF32; bytes "
+          f"{moved / HBM_BYTES * 1e3:.4f} ms for {moved / 1e6:.1f} MB); "
+          f"FP32-pipe bound {fp32_ms:.4f} ms ({flops / 1e9:.2f} GFLOP); "
+          f"partial yardstick, not library_ms: the blend GEMM alone, "
+          f"torch.matmul(coeffs, dirs) in fp32, {blend_gemm:.4f} ms")
+    # And at a training step's N.
+    t_ms, tp_ms = k1_in_turns(torch, k1_operands(smpl, consts,
+                                                 *inputs(TRAIN_N)))
+    t_bound, t_by = k1_bound(smpl_cuda, TRAIN_N)[:2]
+    print(f"K1 N={TRAIN_N} V={SMPL_VERTS} (a training step): kernel "
+          f"{t_ms:.4f} ms, plain {tp_ms:.4f} ms, bound {t_bound:.4f} ms "
+          f"({t_by})")
+    return {"max_abs_err": plane_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "train_n": TRAIN_N, "train_ms": t_ms, "train_plain_ms": tp_ms,
+            "train_bound_ms": t_bound}
+
+
+def k1_operands(smpl, consts, beta, theta):
+    from human_dynamics_tpu_torch.ops import smpl_cuda
+
+    coeffs, rt_t, _, _ = smpl_cuda.blend_skin_operands(smpl, consts, beta,
+                                                       theta)
+    return (coeffs, rt_t, consts.dirs, consts.v_template, consts.weights_t)
+
+
+def k1_in_turns(torch, ops):
+    """(kernel ms, plain ms) of K1 on `ops`, timed plain, kernel, kernel,
+    plain, 20 launches each; the best of each pair."""
+    from human_dynamics_tpu_torch.ops import smpl_cuda
+
     kernel = lambda: smpl_cuda.blend_skin(*ops)
     plain = lambda: smpl_cuda.blend_skin_reference(*ops)
     p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
-    blend_gemm = cuda_ms(lambda: torch.matmul(coeffs, consts.dirs))
-    print(f"K1 N={main_n} V={SMPL_VERTS}: kernel {k1:.4f}/{k2:.4f} ms, "
-          f"plain {p1:.4f}/{p2:.4f} ms (CUDA events, 20 launches each)")
-    # The function's own work, without the kernel's zero padding
-    # (coefficients 217 -> 224, joints 24 -> 32): per vertex and frame, the
-    # blend and skinning products (2 flop per multiply-add), the template
-    # add and the 3x4 transform; bytes of the unpadded operands and the 3
-    # planes. On the tensor cores each product is three TF32 products.
-    n, v = main_n, SMPL_VERTS
+    return min(k1, k2), min(p1, p2)
+
+
+def k1_bound(smpl_cuda, n):
+    """K1's bound at N = n: the function's own work, without the kernel's
+    zero padding (coefficients 217 -> 224, joints 24 -> 32): per vertex and
+    frame, the blend and skinning products (2 flop per multiply-add), the
+    template add and the 3x4 transform; bytes of the unpadded operands and
+    the 3 planes. On the tensor cores each product is three TF32 products.
+    Returns (bound ms, by, FP32-pipe bound ms, products, flops, bytes)."""
+    v = SMPL_VERTS
     cd, rc, nj = smpl_cuda.COEF_DIM, smpl_cuda.RT_CH, smpl_cuda.NUM_JOINTS
     products = n * v * 2 * (3 * cd + rc * nj)
     flops = products + n * v * (3 + 18)
@@ -312,15 +381,7 @@ def phase_k1(torch, np, dev, smpl, consts, main_n):
                  + 3 * n * v)
     b_ms, b_by = bound_ms(3 * products, TF32_OPS, moved)
     fp32_ms, _ = bound_ms(flops, FP32_OPS, moved)
-    print(f"K1 yardsticks: 3xTF32 tensor-core bound {b_ms:.4f} ms ({b_by}: "
-          f"{3 * products / 1e9:.2f} GFLOP TF32; bytes "
-          f"{moved / HBM_BYTES * 1e3:.4f} ms for {moved / 1e6:.1f} MB); "
-          f"FP32-pipe bound {fp32_ms:.4f} ms ({flops / 1e9:.2f} GFLOP); "
-          f"partial yardstick, not library_ms: the blend GEMM alone, "
-          f"torch.matmul(coeffs, dirs) in fp32, {blend_gemm:.4f} ms")
-    return {"max_abs_err": plane_err, "ms": min(k1, k2),
-            "plain_ms": min(p1, p2), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+    return b_ms, b_by, fp32_ms, products, flops, moved
 
 
 def check_predictor_outputs(torch, out, what):
@@ -653,9 +714,11 @@ def profile_run(torch, what, run):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # Device kernels only: the operator rows repeat their kernels' time.
+    # Device kernels only: the operator rows, and the device ranges of user
+    # annotations such as Optimizer.step, repeat their kernels' time.
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     total = sum(e.self_device_time_total for e in events) / 1e3
     check(total <= wall * 1e3, f"profile: kernel time {total:.2f} ms exceeds "
           f"the traced wall {wall * 1e3:.2f} ms; events are counted twice")
@@ -665,6 +728,7 @@ def profile_run(torch, what, run):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
+    return events, total
 
 
 def reset_all(K, smpl_cuda):
@@ -1029,7 +1093,7 @@ def phase_tf32(torch, np, dev):
         clip, as_numpy=False)
     cpu_s = time.perf_counter() - t0
     pred = HmmrPredictor(model, None, smpl, use_fused_smpl=True, device=dev)
-    guard = P._full_fp32
+    guard = P.full_fp32
     runs = {"cudnn.allow_tf32=True, unguarded": (True, contextlib.nullcontext),
             "cudnn.allow_tf32=True": (True, guard),
             "cudnn.allow_tf32=False": (False, guard)}
@@ -1038,13 +1102,13 @@ def phase_tf32(torch, np, dev):
     try:
         for name, (tf32, ctx) in runs.items():
             torch.backends.cudnn.allow_tf32 = tf32
-            P._full_fp32 = ctx
+            P.full_fp32 = ctx
             out = pred.predict_all_images(clip.to(dev), as_numpy=False)
             errs[name] = {k: max_abs(out[k].cpu(), ref[k])
                           for k in ("omegas", "joints", "verts")}
     finally:
         torch.backends.cudnn.allow_tf32 = prev
-        P._full_fp32 = guard
+        P.full_fp32 = guard
     for name, e in errs.items():
         print(f"TF32 check, fp32 predictor, {N_TF32} frames, card vs CPU "
               f"({cpu_s:.1f} s on the CPU), {name}: " +
@@ -1054,6 +1118,337 @@ def phase_tf32(torch, np, dev):
         check(errs[name]["omegas"] <= TF32_OMEGA_TOL,
               f"fp32 predictor, {name}: omegas {errs[name]['omegas']}")
     return errs
+
+
+def train_batch(torch, config, dev, seed):
+    """A training batch made on `dev` from a seeded generator, as
+    scripts/bench_train.py's synthetic_batch makes it (all labels present,
+    the mocap pool as rotations)."""
+    from human_dynamics_tpu_torch.core import rodrigues
+    from human_dynamics_tpu_torch.train.trainer import Batch, fake_pool_size
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, t = config.batch_size, config.T
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    kps = randn(b, t, config.num_kps, 3)
+    kps[..., 2] = 1.0
+    return Batch(
+        phis=randn(b, t, config.feature_dim), kps=kps,
+        poses_gt=randn(b, t, 24, 3) * 0.2, shapes_gt=randn(b, 10) * 0.3,
+        joints_gt=randn(b, t, 14, 3), has_3d_joints=torch.ones(b, device=dev),
+        has_3d_smpl=torch.ones(b, device=dev),
+        poses_real=rodrigues(randn(fake_pool_size(config), 24, 3) * 0.2),
+    )
+
+
+def losses_and_grads(torch, config, state, smpl, batch, consts):
+    """compute_losses(train=False) and d(e_loss + d_loss)/d(parameter),
+    fp32 without TF32: ({loss: value}, {"e."/"d." + name: gradient})."""
+    from human_dynamics_tpu_torch.train.trainer import compute_losses
+    from human_dynamics_tpu_torch.utils.precision import full_fp32
+
+    named = ([("e." + n, p) for n, p in state.hmmr.named_parameters()]
+             + [("d." + n, p) for n, p in state.disc.named_parameters()])
+    with full_fp32():
+        e, d, m = compute_losses(config, state.hmmr, state.disc, smpl, batch,
+                                 train=False, fused_constants=consts)
+        grads = torch.autograd.grad(e + d, [p for _, p in named])
+    return ({k: v.detach() for k, v in m.items()},
+            {n: g for (n, _), g in zip(named, grads)})
+
+
+@contextlib.contextmanager
+def relu_inputs(torch, state):
+    """Collects the output of every Linear layer of the HMMR model and the
+    discriminator while inside, in call order (all but the last layer of
+    each MLP feed a ReLU)."""
+    acts, hooks = [], []
+    for m in (state.hmmr, state.disc):
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.Linear):
+                hooks.append(mod.register_forward_hook(
+                    lambda _m, _i, out: acts.append(out.detach())))
+    try:
+        yield acts
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def write_train_records(np, root, phi_dim):
+    """Phi training records (h36m and insta_variety, 3 tubes of 30 frames
+    each), mocap records, and the SMPL model as an npz; returns the npz's
+    path."""
+    from human_dynamics_tpu_torch.core import synthetic_smpl_model
+    from human_dynamics_tpu_torch.data import (
+        TFRecordWriter,
+        convert_to_example_temporal,
+        encode_example,
+    )
+
+    rng = np.random.RandomState(12)
+    for dataset in ("h36m", "insta_variety"):
+        d = os.path.join(root, dataset, "train")
+        os.makedirs(d)
+        with TFRecordWriter(os.path.join(d, "shard_0.tfrecord")) as w:
+            for _ in range(3):
+                n = 30
+                labels = rng.rand(n, 3, SMPL_KPS).astype(np.float32)
+                labels[:, 2] = rng.rand(n, SMPL_KPS) > 0.2
+                w.write(convert_to_example_temporal(
+                    image_datas=None,
+                    image_paths=[f"{i:06d}.jpg" for i in range(n)],
+                    image_shapes=np.full((n, 2), IMG), labels=labels,
+                    centers=rng.randint(0, IMG, (n, 2)),
+                    gt3ds=rng.randn(n, 14, 3).astype(np.float32) * 0.3,
+                    scale_factors=rng.rand(n, 2).astype(np.float32),
+                    start_pts=rng.randint(0, 50, (n, 2)),
+                    cams=rng.rand(n, 3).astype(np.float32),
+                    poses=rng.randn(n, 72).astype(np.float32) * 0.2,
+                    shape=rng.randn(10).astype(np.float32) * 0.3,
+                    phis=rng.randn(n, phi_dim).astype(np.float32),
+                ))
+    d = os.path.join(root, "mocap_neutrMosh")
+    os.makedirs(d)
+    with TFRecordWriter(os.path.join(d, "neutrSMPL_CMU_0.tfrecord")) as w:
+        for _ in range(1000):
+            w.write(encode_example({
+                "pose": rng.randn(72).astype(np.float32) * 0.2,
+                "shape": rng.randn(10).astype(np.float32) * 0.3}))
+    smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS)
+    path = os.path.join(root, "smpl.npz")
+    np.savez(path, parents=np.array(smpl.parents),
+             cocoplus_regressor=smpl.joint_regressor.numpy(),
+             **{k: getattr(smpl, k).numpy() for k in (
+                 "v_template", "shapedirs", "posedirs", "j_regressor",
+                 "lbs_weights")})
+    return path
+
+
+def phase_train(torch, np, dev, smpl, K, smpl_cuda, card):
+    """Phase 12: phi-mode training at full width."""
+    import dataclasses
+    import tempfile
+
+    from human_dynamics_tpu_torch.core import synthetic_smpl_model
+    from human_dynamics_tpu_torch.eval.harness import load_model_variables
+    from human_dynamics_tpu_torch.infer import HmmrPredictor
+    from human_dynamics_tpu_torch.models import HmmrModel
+    from human_dynamics_tpu_torch.ops.smpl_cuda import prepare_fused_constants
+    from human_dynamics_tpu_torch.train import main as train_main
+    from human_dynamics_tpu_torch.train.trainer import (
+        Trainer,
+        create_train_state,
+    )
+    from human_dynamics_tpu_torch.utils.config import Config
+    from human_dynamics_tpu_torch.utils.weights import load_jax_variables
+
+    t_phase = time.perf_counter()
+    config = Config(batch_size=TRAIN_B, T=TRAIN_T, feature_dim=TRAIN_C,
+                    num_kps=SMPL_KPS, use_fused_smpl=True)
+    unfused = dataclasses.replace(config, use_fused_smpl=False)
+    fused_tr = Trainer(config, smpl, device=dev)
+    batch = train_batch(torch, config, dev, seed=7)
+    st = fused_tr.state
+    n_params = sum(p.numel() for m in (st.hmmr, st.disc)
+                   for p in m.parameters())
+    print(f"train: Config(batch_size={TRAIN_B}, T={TRAIN_T}, feature_dim="
+          f"{TRAIN_C}, num_kps={SMPL_KPS}), {n_params / 1e6:.2f} M "
+          f"parameters (HMMR phi model + discriminator)")
+
+    # Fused against unfused: every loss and every gradient.
+    reset_all(K, smpl_cuda)
+    with relu_inputs(torch, st) as card_acts:
+        lf, gf = losses_and_grads(torch, config, st, fused_tr.smpl, batch,
+                                  fused_tr.fused_constants)
+    torch.cuda.synchronize()
+    check(read_counts(K, smpl_cuda)[0][smpl_cuda.KERNEL_NAME] == 1,
+          "the fused loss evaluation did not launch K1 once")
+    lu, gu = losses_and_grads(torch, unfused, st, fused_tr.smpl, batch, None)
+    loss_err = {k: abs(float(lf[k]) - float(lu[k])) for k in lf}
+    for k in lf:
+        check(torch.allclose(lf[k], lu[k], atol=GRAD_ATOL, rtol=GRAD_RTOL),
+              f"train loss {k}: fused {float(lf[k])} unfused {float(lu[k])}")
+    for n in gf:
+        check(torch.allclose(gf[n], gu[n], atol=GRAD_ATOL, rtol=GRAD_RTOL),
+              f"train gradient {n}: fused vs unfused differ by "
+              f"{max_abs(gf[n], gu[n])}")
+    print(f"train fused vs unfused (atol {GRAD_ATOL}, rtol {GRAD_RTOL}): "
+          f"e_loss {float(lf['e_loss']):.6f}/{float(lu['e_loss']):.6f}, "
+          f"d_loss {float(lf['d_loss']):.6f}/{float(lu['d_loss']):.6f}; "
+          f"max loss diff {max(loss_err.values()):.3e}, max gradient diff "
+          f"{max(max_abs(gf[n], gu[n]) for n in gf):.3e} over {len(gf)} "
+          f"parameters")
+
+    # The card against the same state on the CPU.
+    cpu_state = create_train_state(config, "cpu",
+                                   torch.Generator().manual_seed(0))
+    cpu_state.hmmr.load_state_dict(st.hmmr.state_dict())
+    cpu_state.disc.load_state_dict(st.disc.state_dict())
+    cpu_smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS)
+    cpu_batch = type(batch)(*[x.cpu() for x in batch])
+    t0 = time.perf_counter()
+    with relu_inputs(torch, cpu_state) as cpu_acts:
+        lc, gc = losses_and_grads(torch, config, cpu_state, cpu_smpl,
+                                  cpu_batch, prepare_fused_constants(cpu_smpl))
+    cpu_s = time.perf_counter() - t0
+    flips = sum(int(((a > 0) != (b.cpu() > 0)).sum())
+                for a, b in zip(cpu_acts, card_acts))
+    n_acts = sum(a.numel() for a in cpu_acts)
+    loss_rel = {k: abs(float(lf[k]) - float(lc[k])) / abs(float(lc[k]))
+                for k in lc}
+    grad_l2 = {n: float((gf[n].cpu() - gc[n]).norm() / gc[n].norm())
+               for n in gc}
+    grad_max = {n: max_abs(gf[n].cpu(), gc[n]) / float(gc[n].abs().max())
+                for n in gc}
+    worst_l = max(loss_rel, key=loss_rel.get)
+    worst_g = max(grad_l2, key=grad_l2.get)
+    worst_m = max(grad_max, key=grad_max.get)
+    print(f"train card vs CPU (the same state; {cpu_s:.1f} s on the CPU): "
+          f"largest relative loss error {loss_rel[worst_l]:.3e} ({worst_l}; "
+          f"bound {TRAIN_LOSS_RTOL:g}); largest relative L2 gradient error "
+          f"{grad_l2[worst_g]:.3e} ({worst_g}; bound {TRAIN_GRAD_REL:g}); "
+          f"largest gradient element error relative to its parameter's "
+          f"largest element {grad_max[worst_m]:.3e} ({worst_m}); Linear "
+          f"outputs of opposite sign on the card and the CPU: {flips} of "
+          f"{n_acts}")
+    for k, v in loss_rel.items():
+        check(v <= TRAIN_LOSS_RTOL, f"train card vs CPU: {k} off by {v}")
+    for n, v in grad_l2.items():
+        check(v <= TRAIN_GRAD_REL, f"train card vs CPU: d/d{n} off by {v}")
+    del cpu_state, gc, gu, cpu_acts, card_acts
+
+    # K1 once per fused step, never per unfused step.
+    unfused_tr = Trainer(unfused, smpl, device=dev)
+    for tr, want in ((fused_tr, 1), (unfused_tr, 0)):
+        reset_all(K, smpl_cuda)
+        tr.step(batch)
+        torch.cuda.synchronize()
+        got = read_counts(K, smpl_cuda)[0][smpl_cuda.KERNEL_NAME]
+        check(got == want, f"train step launched K1 {got} times, want {want}")
+
+    # The main path: N_LEARN steps on the fixed batch.
+    reset_all(K, smpl_cuda)
+    hist = [fused_tr.step(batch) for _ in range(N_LEARN)]
+    torch.cuda.synchronize()
+    counts, _ = read_counts(K, smpl_cuda)
+    e_losses = [float(m["e_loss"]) for m in hist]
+    check(all(np.isfinite(float(v)) for m in hist for v in m.values()),
+          "train: a loss is not finite")
+    check(counts == {smpl_cuda.KERNEL_NAME: N_LEARN, K.CONV: 0, K.PREACT: 0,
+                     K.BLOCK: 0},
+          f"train: launches {counts} over {N_LEARN} fused steps")
+    check(e_losses[-1] < e_losses[0], f"train: e_loss did not fall: "
+          f"{e_losses}")
+    print(f"train {N_LEARN} fused steps on one batch: e_loss "
+          f"{e_losses[0]:.4f} -> {e_losses[-1]:.4f}, d_loss "
+          f"{float(hist[0]['d_loss']):.4f} -> {float(hist[-1]['d_loss']):.4f}"
+          f"; launches {counts}")
+
+    # End to end: records -> train.main -> checkpoint -> restore, predict.
+    with tempfile.TemporaryDirectory() as tmp:
+        smpl_path = write_train_records(np, os.path.join(tmp, "data"),
+                                        TRAIN_C)
+        model_dir = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        run = train_main.main([
+            "--data_dir", os.path.join(tmp, "data"), "--model_dir",
+            model_dir, "--smpl_model_path", smpl_path, "--datasets", "h36m",
+            "insta_variety", "--batch_size", str(TRAIN_B), "--T",
+            str(TRAIN_T), "--feature_dim", str(TRAIN_C), "--num_kps",
+            str(SMPL_KPS), "--use_fused_smpl", "--log_step", "1",
+            "--num_steps", "3",
+        ])
+        main_s = time.perf_counter() - t0
+        ckpt = os.path.join(model_dir, "ckpt-3.npz")
+        check(os.path.exists(ckpt) and run.state.step == 3,
+              f"train.main wrote {sorted(os.listdir(model_dir))}")
+        restored = Trainer(dataclasses.replace(config, model_dir=model_dir),
+                           smpl, device=dev)
+        check(restored.state.step == 3, "the restored Trainer is not at 3")
+        for a, b in ((run.state.hmmr, restored.state.hmmr),
+                     (run.state.disc, restored.state.disc)):
+            for (n, p), (_, q) in zip(a.named_parameters(),
+                                      b.named_parameters()):
+                check(torch.equal(p, q), f"restored parameter {n} differs")
+        for opt_a, opt_b in ((run.state.opt_e, restored.state.opt_e),
+                             (run.state.opt_d, restored.state.opt_d)):
+            for p, q in zip(opt_a.param_groups[0]["params"],
+                            opt_b.param_groups[0]["params"]):
+                for key in ("exp_avg", "exp_avg_sq"):
+                    check(torch.equal(opt_a.state[p][key],
+                                      opt_b.state[q][key]),
+                          f"restored Adam {key} differs")
+        model = HmmrModel(feature_dim=TRAIN_C, device="meta")
+        model = load_jax_variables(model.to_empty(device="cpu"),
+                                   load_model_variables(ckpt))
+        pred = HmmrPredictor(model, None, smpl, batch_size=TRAIN_B,
+                             seq_length=TRAIN_T, use_fused_smpl=True,
+                             device=dev)
+        phis = torch.randn(100, TRAIN_C, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(9))
+        reset_all(K, smpl_cuda)
+        out = pred.predict_all_images(phis, as_numpy=False)
+        torch.cuda.synchronize()
+        check(read_counts(K, smpl_cuda)[0][smpl_cuda.KERNEL_NAME] == 1,
+              "the predictor on the trained checkpoint did not launch K1")
+        check(tuple(out["verts"].shape) == (100, SMPL_VERTS, 3)
+              and all(bool(torch.isfinite(v).all()) for v in out.values()),
+              "the predictor on the trained checkpoint: bad outputs")
+        print(f"train.main: 3 steps on phi records in {main_s:.2f} s "
+              f"(pipeline, model init, steps, a {os.path.getsize(ckpt) / 2**20:.0f}"
+              f" MiB checkpoint); a fresh Trainer restored step 3 with equal "
+              f"parameters and moments; HmmrPredictor on the checkpoint: "
+              f"100 frames, finite, K1 once")
+        del run, restored, model, pred, out
+
+    # Smoke timing, in turns, after a warm-up.
+    bf16_tr = Trainer(dataclasses.replace(config, use_bfloat16=True), smpl,
+                      device=dev)
+    trainers = {"fp32 fused": fused_tr, "fp32 unfused": unfused_tr,
+                "bf16 fused": bf16_tr}
+    step_mem = {}
+    for name, tr in trainers.items():
+        tr.step(batch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr.step(batch)
+        torch.cuda.synchronize()
+        step_mem[name] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    times = {name: [] for name in trainers}
+    order = list(trainers)
+    for name in order + order[::-1] + order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_TIMED_STEPS):
+            trainers[name].step(batch)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3 / N_TIMED_STEPS)
+    for name, ts in times.items():
+        print(f"smoke timing (not a benchmark) [{card}]: train step {name}, "
+              f"B={TRAIN_B} T={TRAIN_T} feature_dim={TRAIN_C}: "
+              f"{float(np.median(ts)):.2f} ms/step (median of {len(ts)} "
+              f"turns of {N_TIMED_STEPS} synchronised steps; all "
+              f"{[round(x, 2) for x in ts]}); the step's device memory "
+              f"above the resident state {step_mem[name]:.2f} GiB")
+    print(f"train: device memory allocated at the end of phase 12 (the "
+          f"three trainers and earlier phases' models and inputs) "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    k1_share = None
+    if PROFILE:
+        events, total = profile_run(torch, "train step, fp32 fused",
+                                    lambda: fused_tr.step(batch))
+        k1_ms = sum(e.self_device_time_total for e in events
+                    if "blend_skin_kernel" in e.key) / 1e3
+        k1_share = k1_ms / total
+        print(f"profile, train step: K1 {k1_ms:.3f} ms of {total:.2f} ms "
+              f"kernel time ({k1_share * 100:.1f}%)")
+    print(f"phase 12 (training) took {time.perf_counter() - t_phase:.1f} s")
+    return {"train_launches": counts[smpl_cuda.KERNEL_NAME],
+            "train_steps": N_LEARN,
+            "ms_per_step": {k: float(np.median(v)) for k, v in times.items()},
+            "k1_share": k1_share}
 
 
 def main():
@@ -1233,11 +1628,15 @@ def main():
     # Phase 11: TF32 in the fp32 predictor, against the CPU.
     phase_tf32(torch, np, dev)
 
+    # Phase 12: phi-mode training.
+    train = phase_train(torch, np, dev, smpl, K, smpl_cuda, card)
+
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [
         dict(name=smpl_cuda.KERNEL_NAME, source=csrc + "smpl_blend_skin.cu",
              replaces="human_dynamics_tpu/ops/smpl_pallas.py:108",
-             launches=launches, **k1),
+             launches=launches, train_launches=train["train_launches"],
+             train_steps=train["train_steps"], **k1),
         dict(name=K.BLOCK, source=csrc + "resnet_int8.cu",
              replaces="human_dynamics_tpu/ops/resnet_int8_pallas.py:151",
              **int8["k2"]),
@@ -1250,8 +1649,13 @@ def main():
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # K1 also runs on the training path: its launches over the phase-12
+    # steps, and its times at a training step's N.
+    train_keys = ("train_launches", "train_steps", "train_n", "train_ms",
+                  "train_plain_ms", "train_bound_ms")
     print(json.dumps({"kernels": [
-        {k: dict(kern, route="cuda")[k] for k in keys} for kern in kernels
+        {k: dict(kern, route="cuda")[k] for k in keys
+         + tuple(k for k in train_keys if k in kern)} for kern in kernels
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

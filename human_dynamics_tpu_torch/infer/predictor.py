@@ -24,7 +24,6 @@ Counterpart of ``human_dynamics_tpu/infer/predictor.py``, inference only:
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import warnings
 from typing import Dict, Mapping, Optional
@@ -46,7 +45,7 @@ from human_dynamics_tpu_torch.models.resnet_int8 import (
     run_int8_static,
 )
 from human_dynamics_tpu_torch.ops.smpl_cuda import prepare_fused_constants
-from human_dynamics_tpu_torch.utils.precision import to_bf16
+from human_dynamics_tpu_torch.utils.precision import full_fp32, to_bf16
 
 _TWO_OVER_255 = float(np.float32(2.0 / 255.0))
 _KEYS = ("cams", "joints", "kps", "poses", "shapes", "verts", "omegas")
@@ -62,24 +61,6 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
-
-
-@contextlib.contextmanager
-def _full_fp32():
-    """fp32 convolutions and matmuls in full fp32, not TF32, inside. On an
-    H100 with cuDNN's TF32 default the fp32 predictor's omegas were 1.6e-4
-    from the same model's on the CPU, and 7e-7 without TF32 (PERF.md, §7).
-    The flags are process-wide: the predictor's device work runs on one
-    thread (see infer/service.py)."""
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 def _without_resnet(model: HmmrModel) -> HmmrModel:
@@ -271,7 +252,7 @@ class HmmrPredictor:
         x = self._normalise(chunk)
         if self.bf16_encoder:
             return self._encoder(x.to(torch.bfloat16)).float()
-        with _full_fp32():
+        with full_fp32():
             return self._encoder(x)
 
     @torch.inference_mode()
@@ -306,7 +287,7 @@ class HmmrPredictor:
         if self.bf16_temporal:
             out = self._tail(windows.to(torch.bfloat16))
         else:
-            with _full_fp32():
+            with full_fp32():
                 out = self._tail(windows)
 
         if self.pred_mode == "hal":

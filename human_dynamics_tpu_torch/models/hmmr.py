@@ -1,10 +1,14 @@
-"""The full HMMR model, inference form: phi or images -> omegas per head.
+"""The full HMMR model: phi or images -> omegas per head.
 
 Counterpart of ``human_dynamics_tpu/models/hmmr.py``. The present IEF
 regressor (``single_view_ief``) and each delta regressor are shared by the
 temporal-encoder branch and the hallucinator branch. The delta heads
 start from the present omega, regress the 72 pose values, and then get
 the camera [1, 0, 0] and the starting beta re-attached.
+
+``forward(inputs, train=True, generator=g)`` is phi-mode training: every
+IEF call of every head and branch applies dropout with masks from ``g``.
+Image-mode training (train-mode BatchNorm in the ResNet) is not ported.
 """
 
 from __future__ import annotations
@@ -150,13 +154,15 @@ class HmmrModel(nn.Module):
         return phi.reshape(b, t, -1)
 
     def _pred_heads(
-        self, features: torch.Tensor, with_deltas: bool
+        self, features: torch.Tensor, with_deltas: bool, train: bool,
+        generator: Optional[torch.Generator],
     ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
         b, t, d = features.shape
         phi = features.reshape(b * t, d)
         omega_mean = self.mean_param.expand(b * t, OMEGA_DIM)
         present = ief_refine(
-            self.single_view_ief, phi, omega_mean, self.num_stage
+            self.single_view_ief, phi, omega_mean, self.num_stage, train,
+            generator,
         )
         deltas: Dict[int, torch.Tensor] = {}
         if with_deltas:
@@ -171,30 +177,39 @@ class HmmrModel(nn.Module):
                     continue
                 pose72 = ief_refine(
                     self.ief_delta[_delta_key(dt)], phi, start[:, 3:75],
-                    self.num_stage,
+                    self.num_stage, train, generator,
                 )
                 deltas[dt] = torch.cat(
                     [cam_fixed, pose72, beta], dim=1
                 ).reshape(b, t, OMEGA_DIM)
         return present.reshape(b, t, OMEGA_DIM), deltas
 
-    def forward(self, inputs: torch.Tensor) -> HmmrOutputs:
+    def forward(self, inputs: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> HmmrOutputs:
+        """``train`` turns the IEF dropout on, with masks drawn from
+        ``generator``."""
         if inputs.dim() == 5:
             if not self.include_resnet:
                 raise ValueError("Model built without resnet but got image input")
+            if train:
+                raise NotImplementedError(
+                    "image-mode training (train-mode BatchNorm) is not "
+                    "ported; train on precomputed phi"
+                )
             phi = self.encode_images(inputs)
         else:
             phi = inputs
 
         movie_strip = phi if self.use_hmr_only else self.temporal_encoder(phi)
         omega_pred, omegas_delta = self._pred_heads(
-            movie_strip, self.predict_delta
+            movie_strip, self.predict_delta, train, generator
         )
         omega_hal, omegas_hal_delta, hal_strip = None, {}, None
         if self.do_hallucinate:
             hal_strip = self.hallucinator(phi)
             omega_hal, omegas_hal_delta = self._pred_heads(
-                hal_strip, self.predict_delta and self.do_hallucinate_preds
+                hal_strip, self.predict_delta and self.do_hallucinate_preds,
+                train, generator,
             )
         return HmmrOutputs(
             omega_pred=omega_pred,

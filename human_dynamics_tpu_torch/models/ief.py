@@ -1,9 +1,14 @@
-"""Iterative-error-feedback (IEF) Omega regressor, inference form.
+"""Iterative-error-feedback (IEF) Omega regressor.
 
 Counterpart of ``human_dynamics_tpu/models/ief.py``: the shared 3-layer MLP
-(fc1024 -> fc1024 -> fc{out}; dropout is inactive at inference) and the
+(fc1024 -> dropout 0.5 -> fc1024 -> dropout 0.5 -> fc{out}) and the
 additive refinement over ``num_stage`` stages with shared weights. Each
 stage reads ``[phi, theta]`` in that order.
+
+Dropout is active only with ``train=True``, and then draws its masks from
+the ``torch.Generator`` passed in (never from the global RNG): a fresh
+mask per layer and per stage call, as flax draws one per ``nn.Dropout``
+call. Kept values are scaled by 1 / keep, as flax does.
 """
 
 from __future__ import annotations
@@ -17,8 +22,19 @@ from torch import nn
 from human_dynamics_tpu_torch.models.init import xavier_uniform_
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate
+    and scale it by 1 / (1 - rate); the mask comes from ``generator``."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class IefRegressor(nn.Module):
     """state (N, in_features) -> delta (N, num_output)."""
+
+    dropout_rate = 0.5
 
     def __init__(self, in_features: int, num_output: int = 85, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -35,16 +51,26 @@ class IefRegressor(nn.Module):
         for fc in (self.fc1, self.fc2, self.fc3):
             nn.init.zeros_(fc.bias)
 
-    def forward(self, state: torch.Tensor) -> torch.Tensor:
+    def forward(self, state: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train and generator is None:
+            raise ValueError("train=True needs a generator for the dropout")
         net = F.relu(self.fc1(state))
+        if train:
+            net = dropout(net, self.dropout_rate, generator)
         net = F.relu(self.fc2(net))
+        if train:
+            net = dropout(net, self.dropout_rate, generator)
         return self.fc3(net)
 
 
 def ief_refine(regressor: IefRegressor, phi: torch.Tensor,
-               omega_start: torch.Tensor, num_stage: int = 3) -> torch.Tensor:
+               omega_start: torch.Tensor, num_stage: int = 3,
+               train: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """num_stage additive refinements of omega_start (N, num_output)."""
     theta = omega_start
     for _ in range(num_stage):
-        theta = theta + regressor(torch.cat([phi, theta], dim=1))
+        theta = theta + regressor(torch.cat([phi, theta], dim=1), train,
+                                  generator)
     return theta

@@ -4,7 +4,8 @@ Counterpart of ``human_dynamics_tpu/models/omega.py``. Omega raw is 85 =
 [cam 3 | pose 24*3 | shape 10]. ``compute_smpl`` decodes omegas of any
 leading shape in one batched SMPL call. With ``fused=True`` the (N, V)
 work runs in the fused blend+skin op (``ops.smpl_cuda``); its constants
-are prepared once by the caller (the predictor holds them) and passed in.
+are prepared once by the caller (the predictor and the trainer hold them)
+and passed in. ``OmegaGt`` bundles a training batch's ground truth.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from human_dynamics_tpu_torch.core.projection import orth_proj_idrot
+from human_dynamics_tpu_torch.core.rotations import rodrigues
 from human_dynamics_tpu_torch.core.smpl import SmplModel, smpl_forward
 from human_dynamics_tpu_torch.ops.smpl_cuda import (
     FusedSmplConstants,
@@ -105,3 +107,30 @@ def compute_smpl(
         poses_rot=out.rots.reshape(lead + (24, 3, 3)),
         verts=verts,
     )
+
+
+class OmegaGt(NamedTuple):
+    """Ground-truth bundle of a training batch.
+
+    poses_aa (B, T, 24, 3); poses_rot (B, T, 24, 3, 3); shapes (B, 10),
+    one per sequence; joints (B, T, 14, 3) 3-D joints; kps (B, T, K, 3)
+    with visibility.
+    """
+
+    poses_aa: torch.Tensor
+    poses_rot: torch.Tensor
+    shapes: torch.Tensor
+    joints: torch.Tensor
+    kps: torch.Tensor
+
+    @classmethod
+    def create(cls, poses_aa, shapes, joints, kps) -> "OmegaGt":
+        b, t = poses_aa.shape[:2]
+        poses_aa = poses_aa.reshape(b, t, 24, 3)
+        return cls(poses_aa=poses_aa, poses_rot=rodrigues(poses_aa),
+                   shapes=shapes, joints=joints, kps=kps)
+
+    def shapes_tiled(self, t: int) -> torch.Tensor:
+        """(B, 10) -> (B, T, 10)."""
+        return self.shapes[:, None, :].expand(self.shapes.shape[0], t,
+                                              SHAPE_DIM)

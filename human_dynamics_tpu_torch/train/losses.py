@@ -1,0 +1,121 @@
+"""Training losses.
+
+Counterpart of ``human_dynamics_tpu/train/losses.py``. The weighted losses
+keep TF's SUM_BY_NONZERO_WEIGHTS reduction: sum(w * l) / count(w != 0),
+the count taken over the weights broadcast against the losses and at
+least 1 (so an all-masked loss is 0, not NaN). That denominator changes a
+loss's scale against a plain mean whenever visibility masks are sparse.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from human_dynamics_tpu_torch.core.projection import orth_proj_optcam
+
+
+def _sum_by_nonzero_weights(losses: torch.Tensor,
+                            weights: torch.Tensor) -> torch.Tensor:
+    """sum(w * l) / max(1, #nonzero w broadcast against l)."""
+    weighted = losses * weights
+    nonzero = torch.broadcast_to(weights != 0.0, losses.shape).sum()
+    return weighted.sum() / torch.clamp(nonzero, min=1).to(losses.dtype)
+
+
+def keypoint_l1_loss(kp_gt: torch.Tensor,
+                     kp_pred: torch.Tensor) -> torch.Tensor:
+    """Visibility-weighted L1 keypoint loss; kp_gt (..., K, 3) with the
+    visibility channel, kp_pred (..., K, 2)."""
+    gt = kp_gt.reshape(-1, 3)
+    pred = kp_pred.reshape(-1, 2)
+    vis = gt[:, 2:3].to(pred.dtype)
+    return _sum_by_nonzero_weights(torch.abs(gt[:, :2] - pred), vis)
+
+
+def keypoint_l1_loss_optcam(
+    kp_gt: torch.Tensor, kp_pred: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """L1 after the per-frame optimal (detached) camera.
+
+    kp_gt (B, T, K, 3); kp_pred (B, T, K, 2). Returns (loss, best_cam
+    (B, T, 3)).
+    """
+    b, t = kp_gt.shape[:2]
+    gt = kp_gt.reshape(b * t, -1, 3)
+    pred = kp_pred.reshape(b * t, -1, 2)
+    pred_sim, best_cam = orth_proj_optcam(pred, gt)
+    return keypoint_l1_loss(gt, pred_sim), best_cam.reshape(b, t, 3)
+
+
+def masked_mse(params_gt: torch.Tensor, params_pred: torch.Tensor,
+               has_gt: torch.Tensor) -> torch.Tensor:
+    """0.5 * weighted MSE with a per-row mask."""
+    w = has_gt.to(params_pred.dtype).reshape(-1, 1)
+    return 0.5 * _sum_by_nonzero_weights((params_gt - params_pred) ** 2, w)
+
+
+def align_by_pelvis(joints: torch.Tensor) -> torch.Tensor:
+    """Subtract the hip midpoint; LSP order, hips at 3 (L) and 2 (R).
+    joints (..., 14, 3)."""
+    pelvis = (joints[..., 3, :] + joints[..., 2, :]) / 2.0
+    return joints - pelvis[..., None, :]
+
+
+def loss_3d(
+    poses_gt: torch.Tensor,
+    poses_pred: torch.Tensor,
+    shapes_gt: torch.Tensor,
+    shapes_pred: torch.Tensor,
+    joints_gt: torch.Tensor,
+    joints_pred: torch.Tensor,
+    has_gt3d_smpl: torch.Tensor,
+    has_gt3d_joints: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pose-rotmat MSE, shape MSE and pelvis-aligned joint MSE, each masked
+    by availability.
+
+    poses_*, shapes_*: N = B*T' rows of any trailing shape; joints_*
+    (B, T', 14, 3); has_gt3d_* (N,) flags, already repeated per frame.
+    """
+    n = has_gt3d_smpl.shape[0]
+    jg = align_by_pelvis(joints_gt.reshape(-1, joints_gt.shape[-2], 3))
+    jp = align_by_pelvis(joints_pred.reshape(-1, joints_pred.shape[-2], 3))
+    loss_pose = masked_mse(poses_gt.reshape(n, -1),
+                           poses_pred.reshape(n, -1), has_gt3d_smpl)
+    loss_shape = masked_mse(shapes_gt.reshape(n, -1),
+                            shapes_pred.reshape(n, -1), has_gt3d_smpl)
+    loss_joints = masked_mse(jg.reshape(n, -1), jp.reshape(n, -1),
+                             has_gt3d_joints)
+    return loss_pose, loss_shape, loss_joints
+
+
+def beta_smoothness_loss(shapes: torch.Tensor) -> torch.Tensor:
+    """0.5 * MSE between consecutive betas; shapes (B, T, 10)."""
+    return 0.5 * torch.mean((shapes[:, :-1] - shapes[:, 1:]) ** 2)
+
+
+def shape_prior_loss(shapes: torch.Tensor) -> torch.Tensor:
+    """L2 prior on betas."""
+    return torch.mean(shapes ** 2)
+
+
+# LSGAN losses on discriminator outputs (N, 24).
+
+def lsgan_encoder_loss(out_fake: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.sum((out_fake - 1.0) ** 2, dim=1))
+
+
+def lsgan_disc_fake_loss(out_fake: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.sum(out_fake ** 2, dim=1))
+
+
+def lsgan_disc_real_loss(out_real: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.sum((out_real - 1.0) ** 2, dim=1))
+
+
+def hallucinator_mse(movie_strip: torch.Tensor,
+                     hal_strip: torch.Tensor) -> torch.Tensor:
+    """mean((movie_strip - hal_strip)^2); the gradient flows into both."""
+    return torch.mean((movie_strip - hal_strip) ** 2)

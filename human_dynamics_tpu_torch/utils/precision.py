@@ -1,7 +1,15 @@
-"""Mixed-precision cast, counterpart of ``human_dynamics_tpu/utils/precision.py``."""
+"""Precision helpers.
+
+- ``to_bf16``: the mixed-precision cast, counterpart of
+  ``human_dynamics_tpu/utils/precision.py``'s ``tree_bf16``.
+- ``full_fp32``: fp32 convolutions and matmuls in full fp32, not TF32, for
+  the fp32 paths that are held to the JAX package (the predictor's fp32
+  encoder and window tail, the training step).
+"""
 
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Mapping
 
 import torch
@@ -17,7 +25,9 @@ def to_bf16(obj):
     counters) is left alone.
 
     A module has its fp32 parameters and buffers cast in place and is
-    returned; a mapping comes back as a new dict of the same keys.
+    returned; a mapping comes back as a new dict of the same keys. The
+    tensor cast is differentiable, so a mapping of parameters cast here and
+    applied with ``torch.func.functional_call`` gives fp32 gradients.
     """
     if isinstance(obj, nn.Module):
         with torch.no_grad():
@@ -29,3 +39,22 @@ def to_bf16(obj):
     if isinstance(obj, torch.Tensor):
         return _bf16(obj)
     return obj
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 convolutions and matmuls in full fp32, not TF32, inside. On an
+    H100 with cuDNN's TF32 default the fp32 predictor's omegas were 1.6e-4
+    from the same model's on the CPU, and 7e-7 without TF32 (PERF.md, §7).
+    The flags are process-wide: the device work inside runs on one thread
+    (see infer/service.py); autograd's device threads run a backward
+    started inside before it returns."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev

@@ -13,6 +13,12 @@ The mapping is strict: every leaf is used exactly once, and every port
 parameter and buffer receives one; a missing, left-over or mis-shaped leaf
 raises before anything is copied.
 
+- ``export_jax_variables`` is the other direction: a port module's tensors
+  (or any tensors named like them, such as Adam moments) as a flax
+  variables tree in flax layouts; ``jax_to_port`` reads such a tree back
+  for a chosen set of port tensors. The port trainer's checkpoints are
+  written and read through them.
+
 - ``load_jax_int8`` carries the JAX int8 encoder's quantised weights and
   calibrated scales across, as strictly.
 """
@@ -28,8 +34,7 @@ import torch
 from torch import nn
 
 from human_dynamics_tpu_torch.models.resnet import SlimBatchNorm
-
-_SEP = "::"
+from human_dynamics_tpu_torch.utils.checkpoint import load_checkpoint
 
 Key = Tuple[str, ...]
 Perm = Optional[Tuple[int, ...]]
@@ -43,15 +48,7 @@ _KERNEL_PERM = {
 
 def load_jax_npz(path: str) -> Dict[str, Any]:
     """Nested dict of numpy arrays from a JAX package npz checkpoint."""
-    tree: Dict[str, Any] = {}
-    with np.load(path, allow_pickle=False) as flat:
-        for key in flat.files:
-            parts = key.split(_SEP) if _SEP in key else key.split("/")
-            node = tree
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = flat[key]
-    return tree
+    return load_checkpoint(path)
 
 
 def _flax_path(module_name: str) -> Key:
@@ -112,38 +109,76 @@ def _flatten(tree, prefix: Key = ()) -> Dict[Key, Any]:
 def load_jax_variables(module: nn.Module, variables) -> nn.Module:
     """Copy a flax variables tree ({'params': ..., 'batch_stats': ...}, numpy
     leaves) into ``module``'s parameters and buffers, strictly."""
-    leaves = _flatten(variables)
     mapping = variable_map(module)
     tensors = dict(module.named_parameters())
     tensors.update(module.named_buffers())
-
     uncovered = sorted(set(tensors) - set(mapping))
     if uncovered:
         raise ValueError(f"port tensors with no flax counterpart: {uncovered}")
+    values = jax_to_port(module, variables, list(mapping))
+    with torch.no_grad():
+        for name, v in values.items():
+            tensors[name].copy_(v)
+    return module
+
+
+def export_jax_variables(module: nn.Module,
+                         tensors: Optional[Mapping[str, torch.Tensor]] = None):
+    """The inverse of ``load_jax_variables``: a flax variables tree of numpy
+    arrays in flax layouts. ``tensors`` maps port tensor names to the
+    tensors to export (default: every parameter and buffer of ``module``);
+    each name must be one of the module's."""
+    mapping = variable_map(module)
+    if tensors is None:
+        tensors = dict(module.named_parameters())
+        tensors.update(module.named_buffers())
+    tree: Dict[str, Any] = {}
+    for name, t in tensors.items():
+        key, perm = mapping[name]
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if perm is not None:
+            arr = arr.transpose(np.argsort(perm))
+        node = tree
+        for p in key[:-1]:
+            node = node.setdefault(p, {})
+        node[key[-1]] = np.ascontiguousarray(arr)
+    return tree
+
+
+def jax_to_port(module: nn.Module, variables, names,
+                strict: bool = True) -> Dict[str, torch.Tensor]:
+    """The leaves of a flax variables tree for the port tensors ``names``,
+    in port layout (f32 CPU tensors). Every name needs its own leaf with
+    the tensor's shape; with ``strict`` the tree holds no other leaf.
+    Raises before anything is returned."""
+    leaves = _flatten(variables)
+    mapping = variable_map(module)
+    shapes = {n: tuple(t.shape) for n, t in module.named_parameters()}
+    shapes.update((n, tuple(t.shape)) for n, t in module.named_buffers())
     used = set()
-    for name, (key, perm) in mapping.items():
+    for name in names:
+        key, perm = mapping[name]
         if key not in leaves:
             raise KeyError(f"flax leaf {'/'.join(key)} (for {name}) is missing")
         if key in used:
             raise ValueError(f"flax leaf {'/'.join(key)} mapped twice")
         used.add(key)
-        want = tuple(tensors[name].shape)
         got = mapped_shape(np.shape(leaves[key]), perm)
-        if got != want:
+        if got != shapes[name]:
             raise ValueError(
-                f"{'/'.join(key)} -> {name}: shape {got}, port has {want}"
+                f"{'/'.join(key)} -> {name}: shape {got}, port has "
+                f"{shapes[name]}"
             )
     unused = sorted("/".join(k) for k in set(leaves) - used)
-    if unused:
+    if strict and unused:
         raise ValueError(f"flax leaves with no port counterpart: {unused}")
-
-    with torch.no_grad():
-        for name, (key, perm) in mapping.items():
-            arr = np.asarray(leaves[key], dtype=np.float32)
-            if perm is not None:
-                arr = arr.transpose(perm)
-            tensors[name].copy_(torch.tensor(arr))
-    return module
+    out = {}
+    for name in names:
+        key, perm = mapping[name]
+        arr = np.array(leaves[key], dtype=np.float32)
+        out[name] = torch.from_numpy(np.ascontiguousarray(
+            arr if perm is None else arr.transpose(perm)))
+    return out
 
 
 def _int8_tensor(key: str, arr, device) -> torch.Tensor:

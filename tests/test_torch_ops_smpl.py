@@ -288,12 +288,13 @@ def test_cuda_kernel_matches_plain(cuda_device, num_verts, n):
 @pytest.mark.parametrize(
     "num_verts,n",
     [(6890, 1536), (6890, 1440), (6890, 37), (700, 21), (6890, 1), (333, 5),
-     (6890, 24), (6890, 192)],
+     (6890, 24), (6890, 192), (6890, 640)],
 )
 def test_cuda_planes_match_plain_fp32(cuda_device, num_verts, n):
     """The kernel's three vertex planes against the plain version in fp32
     (matmul TF32 off) at 1e-5: the main path's N = 1536, V = 6890, a
-    streaming emission's N = 24 (B=1) and 192 (B=8), and ragged shapes
+    streaming emission's N = 24 (B=1) and 192 (B=8), a training step's
+    N = 640 (4 heads x B*T at B=8, T=20), and ragged shapes
     (V = 6890 is 2 mod 4, 333 is odd; N = 37, 21, 5, 1 are not multiples
     of 4 or of the 64-frame tile)."""
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -324,8 +325,12 @@ def test_cuda_planes_match_plain_fp32(cuda_device, num_verts, n):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_gradient_matches_plain(cuda_device):
-    beta, theta = _inputs(8, 21)
+@pytest.mark.parametrize("n", [21, 640])
+def test_cuda_kernel_gradient_matches_plain(cuda_device, n):
+    """The gradient through smpl_forward_fused (the kernel forward, the
+    composed backward) against the plain forward's, at N = 21 and at a
+    training step's N = 640."""
+    beta, theta = _inputs(8, n)
     model = synthetic_smpl_model(num_verts=6890, num_kps=25,
                                  device=cuda_device)
     grads = []
