@@ -88,6 +88,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    fused, fp32 unfused and use_bfloat16 fused steps in turns, each step's
    device-memory increment. With --profile, a torch.profiler breakdown of
    one fused step with K1's share.
+13. Training, image mode, at full width: Config(batch_size=8, T=20,
+   img_size=224, precomputed_phi=False, feature_dim=2048, num_kps=25,
+   use_fused_smpl=True), ResNet-50 v2 and the HMMR model with random
+   weights from config.seed, one batch of 256x256 uint8 frames made on the
+   card and put through data.augment.augment_batch there (which is held to
+   its CPU run on the same parameters). One step each of (a) freeze_phi
+   fp32 (TF32 off), (b) freeze_phi=False bf16, (c) (b) with remat_resnet,
+   (d) freeze_resnet_stages=3 bf16: every loss finite, K1 once per step,
+   every moving average advanced, the frozen tensors (all of the ResNet
+   under (a), its root and blocks 1-2 under (d)) unchanged and without
+   Adam moments, every other one stepped; (c) against (b): the same
+   losses and moving averages. Then (a), (b), (c) timed in turns, each
+   step's device memory above the resident state, K1 launches over the
+   timed steps, e_loss falling over (b)'s steps; the card against the
+   same state on the CPU at B=1, T=8, 224x224, every head, fp32 (losses,
+   moving averages, gradients, ReLU sign flips counted); train.main on
+   raw_u8 records for 2 bf16 steps. With --profile, a breakdown of one
+   (a) and one (b) step.
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -148,6 +166,22 @@ N_TIMED_STEPS = 5
 # one frame's share of a weight's gradient (measured: 1 flip, 2.06e-4 in
 # L2 on single_view_ief.fc1.weight; ROADMAP Queue 3).
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-5, 1e-3
+# Phase 13: image-mode training, B=8 tubes of T=20 frames of FRAME x FRAME
+# uint8 cropped to IMG; the card against the CPU at B=1, T=8. BatchNorm's
+# moving averages take the batch statistics at 0.003, so 1e-5 on them is a
+# batch statistic within 3.3e-3 of the CPU's.
+IMG_B, IMG_T, IMG_CPU_T, FRAME = 8, 20, 8, 256
+N_IMG_LEARN = 10
+N_IMG_TIMED = 3
+IMG_STATS_ATOL = 1e-5
+# augment_batch on the card against the CPU (tests/test_torch_augment.py):
+# the card's sin, cos and pow differ from the CPU's by ulps, so a sampling
+# coordinate (up to ~400 px, float32 ulp 3e-5) may move by ~1e-4 px, and a
+# crop of noise frames (neighbours up to 2 apart in [-1, 1]) by 2e-4.
+AUG_PIXEL_ATOL, AUG_LABEL_ATOL = 5e-4, 1e-4
+# remat against no remat, one bf16 step from the same state: the forward is
+# the same kernels on the same inputs, so equal is expected.
+REMAT_LOSS_RTOL, REMAT_STATS_ATOL = 1e-6, 1e-7
 PROFILE = "--profile" in sys.argv[1:]
 TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
 
@@ -1159,13 +1193,16 @@ def losses_and_grads(torch, config, state, smpl, batch, consts):
 
 @contextlib.contextmanager
 def relu_inputs(torch, state):
-    """Collects the output of every Linear layer of the HMMR model and the
-    discriminator while inside, in call order (all but the last layer of
-    each MLP feed a ReLU)."""
+    """Collects the output of every Linear layer and every ResNet
+    BatchNorm of the HMMR model and the discriminator while inside, in call
+    order (all but the last layer of each MLP, and every BatchNorm, feed a
+    ReLU)."""
+    from human_dynamics_tpu_torch.models.resnet import SlimBatchNorm
+
     acts, hooks = [], []
     for m in (state.hmmr, state.disc):
         for mod in m.modules():
-            if isinstance(mod, torch.nn.Linear):
+            if isinstance(mod, (torch.nn.Linear, SlimBatchNorm)):
                 hooks.append(mod.register_forward_hook(
                     lambda _m, _i, out: acts.append(out.detach())))
     try:
@@ -1179,7 +1216,6 @@ def write_train_records(np, root, phi_dim):
     """Phi training records (h36m and insta_variety, 3 tubes of 30 frames
     each), mocap records, and the SMPL model as an npz; returns the npz's
     path."""
-    from human_dynamics_tpu_torch.core import synthetic_smpl_model
     from human_dynamics_tpu_torch.data import (
         TFRecordWriter,
         convert_to_example_temporal,
@@ -1215,6 +1251,13 @@ def write_train_records(np, root, phi_dim):
             w.write(encode_example({
                 "pose": rng.randn(72).astype(np.float32) * 0.2,
                 "shape": rng.randn(10).astype(np.float32) * 0.3}))
+    return write_smpl_npz(np, root)
+
+
+def write_smpl_npz(np, root):
+    """The synthetic SMPL model as an npz in `root`; returns its path."""
+    from human_dynamics_tpu_torch.core import synthetic_smpl_model
+
     smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS)
     path = os.path.join(root, "smpl.npz")
     np.savez(path, parents=np.array(smpl.parents),
@@ -1451,6 +1494,438 @@ def phase_train(torch, np, dev, smpl, K, smpl_cuda, card):
             "k1_share": k1_share}
 
 
+def image_inputs(torch, config, dev, seed, rotate_max):
+    """B tubes of uint8 frames (FRAME x FRAME) with keypoints, centres,
+    poses and joints, made on `dev` from a seeded generator, and augment
+    parameters sampled there."""
+    from human_dynamics_tpu_torch.data.augment import sample_tube_params
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, t, k = config.batch_size, config.T, config.num_kps
+    labels = torch.rand(b, t, 3, k, generator=g, device=dev) * FRAME * 0.5
+    labels[:, :, :2] += FRAME * 0.25
+    labels[:, :, 2] = (labels[:, :, 2] > FRAME * 0.05).float()
+    tubes = dict(
+        images=torch.randint(0, 256, (b, t, FRAME, FRAME, 3), generator=g,
+                             device=dev, dtype=torch.uint8),
+        labels=labels,
+        centers=torch.full((b, t, 2), FRAME / 2, device=dev),
+        poses=torch.randn(b, t, 72, generator=g, device=dev) * 0.2,
+        gt3ds=torch.randn(b, t, 14, 3, generator=g, device=dev) * 0.3,
+    )
+    params = sample_tube_params(
+        g, b, t, trans_max=config.trans_max,
+        delta_trans_max=config.delta_trans_max, scale_max=config.scale_max,
+        delta_scale_max=config.delta_scale_max, rotate_max=rotate_max,
+        delta_rotate_max=config.delta_rotate_max)
+    return tubes, params, g
+
+
+def image_batch(torch, config, dev, seed):
+    """A training batch as TrainDataPipeline makes one in image mode: the
+    tubes through data.augment.augment_batch on `dev`."""
+    from human_dynamics_tpu_torch.core import rodrigues
+    from human_dynamics_tpu_torch.data.augment import augment_batch
+    from human_dynamics_tpu_torch.train.trainer import Batch, fake_pool_size
+
+    tubes, params, g = image_inputs(torch, config, dev, seed,
+                                    config.rotate_max)
+    crops, kps, poses, gt3ds = augment_batch(
+        *tubes.values(), params, output_size=config.img_size,
+        apply_rotation=config.rotate_max != 0)
+    b, t = config.batch_size, config.T
+    return Batch(
+        phis=crops, kps=kps, poses_gt=poses.reshape(b, t, 24, 3),
+        shapes_gt=torch.randn(b, 10, generator=g, device=dev) * 0.3,
+        joints_gt=gt3ds, has_3d_joints=torch.ones(b, device=dev),
+        has_3d_smpl=torch.ones(b, device=dev),
+        poses_real=rodrigues(torch.randn(fake_pool_size(config), 24, 3,
+                                         generator=g, device=dev) * 0.2))
+
+
+def check_augment_card_vs_cpu(torch, config, dev):
+    """augment_batch on the card against the CPU on the same tubes and
+    parameters (rotation on); returns the largest errors."""
+    from human_dynamics_tpu_torch.data.augment import (
+        TubeAugmentParams,
+        augment_batch,
+    )
+
+    tubes, params, _ = image_inputs(torch, config, dev, 21, rotate_max=0.2)
+    card = augment_batch(*tubes.values(), params,
+                         output_size=config.img_size, apply_rotation=True)
+    cpu = augment_batch(*[x.cpu() for x in tubes.values()],
+                        TubeAugmentParams(*[x.cpu() for x in params]),
+                        output_size=config.img_size, apply_rotation=True)
+    errs = {n: max_abs(c.cpu(), w) for n, c, w in
+            zip(("crops", "kps", "poses", "gt3ds"), card, cpu)}
+    print("augment_batch card vs CPU, the same parameters (rotation on): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bounds {AUG_PIXEL_ATOL:g} crops, {AUG_LABEL_ATOL:g} labels)")
+    for n, e in errs.items():
+        bound = AUG_PIXEL_ATOL if n == "crops" else AUG_LABEL_ATOL
+        check(e <= bound, f"augment card vs CPU: {n} off by {e}")
+    return errs
+
+
+def resnet_state(torch, hmmr):
+    """Copies of the ResNet's parameters and BatchNorm buffers."""
+    rn = hmmr.resnet_v2_50
+    return ({n: p.detach().clone() for n, p in rn.named_parameters()},
+            {n: b.clone() for n, b in rn.named_buffers()})
+
+
+def write_image_records(np, root):
+    """raw_u8 image records (h36m and insta_variety, 2 tubes of 24 frames
+    of FRAME x FRAME each) and mocap records; the card's machine has no
+    cv2, so no JPEG."""
+    from human_dynamics_tpu_torch.data import (
+        TFRecordWriter,
+        convert_to_example_temporal,
+        encode_example,
+    )
+
+    rng = np.random.RandomState(13)
+    for dataset in ("h36m", "insta_variety"):
+        d = os.path.join(root, dataset, "train")
+        os.makedirs(d)
+        with TFRecordWriter(os.path.join(d, "shard_0.tfrecord")) as w:
+            for _ in range(2):
+                n = 24
+                labels = np.zeros((n, 3, SMPL_KPS), np.float32)
+                labels[:, :2] = rng.uniform(FRAME * 0.25, FRAME * 0.75,
+                                            (n, 2, SMPL_KPS))
+                labels[:, 2] = rng.rand(n, SMPL_KPS) > 0.2
+                w.write(convert_to_example_temporal(
+                    image_datas=[rng.randint(0, 256, (FRAME, FRAME, 3))
+                                 .astype(np.uint8).tobytes()
+                                 for _ in range(n)],
+                    image_paths=[f"{i:06d}.jpg" for i in range(n)],
+                    image_shapes=np.full((n, 2), FRAME), labels=labels,
+                    centers=np.full((n, 2), FRAME // 2),
+                    gt3ds=rng.randn(n, 14, 3).astype(np.float32) * 0.3,
+                    scale_factors=np.ones((n, 2), np.float32),
+                    start_pts=np.zeros((n, 2), np.int64),
+                    cams=np.ones((n, 3), np.float32),
+                    poses=rng.randn(n, 72).astype(np.float32) * 0.2,
+                    shape=rng.randn(10).astype(np.float32) * 0.3,
+                    image_format="raw_u8",
+                ))
+    d = os.path.join(root, "mocap_neutrMosh")
+    os.makedirs(d)
+    with TFRecordWriter(os.path.join(d, "neutrSMPL_CMU_0.tfrecord")) as w:
+        for _ in range(1000):
+            w.write(encode_example({
+                "pose": rng.randn(72).astype(np.float32) * 0.2,
+                "shape": rng.randn(10).astype(np.float32) * 0.3}))
+
+
+def image_card_vs_cpu(torch, np, dev, smpl, config):
+    """compute_losses(train=True) and its gradients at B=1, T=IMG_CPU_T,
+    full width, every head, the whole trunk trained, fp32 without TF32: the
+    card against the same state on the CPU, and both against a float64 run
+    on the CPU (unfused SMPL, K1 being fp32). Dropout is off (rate 0) so
+    that every run is the same network; train-mode BatchNorm advances the
+    moving averages.
+
+    The gradients are held to the float64 run, not to the CPU's fp32 ones:
+    each of the ~58 M ReLU inputs (Linear and BatchNorm outputs) within a
+    rounding error of 0 takes its side by the rounding. A flip in a 7x7
+    block-4 map moves every earlier layer's gradient through the BatchNorm
+    backward's channel means, and at B*T = 8 rows one flip in a head's MLP
+    is 1/8 of a column of its weight's gradient, so on this input the CPU's
+    fp32 gradients are themselves up to ~2e-2 (relative L2) from float64
+    (phase 12's 160 rows keep a flip at 2e-4); with every ReLU made a
+    smooth softplus that error goes. The card's largest distance from
+    float64 is held to at most twice the CPU's, plus TRAIN_GRAD_REL."""
+    import dataclasses
+
+    from human_dynamics_tpu_torch.core import synthetic_smpl_model
+    from human_dynamics_tpu_torch.models.ief import IefRegressor
+    from human_dynamics_tpu_torch.ops.smpl_cuda import prepare_fused_constants
+    from human_dynamics_tpu_torch.train.trainer import (
+        compute_losses,
+        create_train_state,
+    )
+    from human_dynamics_tpu_torch.utils.precision import full_fp32
+
+    def run(state, cfg, smpl_, batch, consts, gen):
+        for m in state.hmmr.modules():
+            if isinstance(m, IefRegressor):
+                m.dropout_rate = 0.0
+        named = ([("e." + n, p) for n, p in state.hmmr.named_parameters()]
+                 + [("d." + n, p) for n, p in state.disc.named_parameters()])
+        with relu_inputs(torch, state) as acts, full_fp32():
+            e, d, m = compute_losses(cfg, state.hmmr, state.disc, smpl_,
+                                     batch, train=True, generator=gen,
+                                     fused_constants=consts)
+            grads = torch.autograd.grad(e + d, [p for _, p in named])
+        stats = {n: b.clone() for n, b in state.hmmr.named_buffers()}
+        return ({k: float(v.detach()) for k, v in m.items()},
+                {n: g for (n, _), g in zip(named, grads)}, stats, acts)
+
+    card_state = create_train_state(
+        config, dev, torch.Generator(device=dev).manual_seed(config.seed))
+    cpu_state = create_train_state(config, "cpu",
+                                   torch.Generator().manual_seed(0))
+    cpu_state.hmmr.load_state_dict(card_state.hmmr.state_dict())
+    cpu_state.disc.load_state_dict(card_state.disc.state_dict())
+    start = [{k: v.clone() for k, v in m.state_dict().items()}
+             for m in (cpu_state.hmmr, cpu_state.disc)]
+    batch = image_batch(torch, config, dev, seed=23)
+    cpu_batch = type(batch)(*[x.cpu() for x in batch])
+    cpu_smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS)
+    lc_, gc_, sc_, ac_ = run(card_state, config, smpl, batch,
+                             prepare_fused_constants(smpl),
+                             torch.Generator(device=dev).manual_seed(0))
+    t0 = time.perf_counter()
+    lp_, gp_, sp_, ap_ = run(cpu_state, config, cpu_smpl, cpu_batch,
+                             prepare_fused_constants(cpu_smpl),
+                             torch.Generator().manual_seed(0))
+    cpu_s = time.perf_counter() - t0
+    for m, sd in zip((cpu_state.hmmr, cpu_state.disc), start):
+        m.load_state_dict(sd)
+        m.double()
+    _, g64, _, _ = run(cpu_state, dataclasses.replace(
+        config, use_fused_smpl=False), cpu_smpl.to(torch.float64),
+        type(batch)(*[x.double() for x in cpu_batch]), None,
+        torch.Generator().manual_seed(0))
+    flips = sum(int(((a > 0) != (b.cpu() > 0)).sum())
+                for a, b in zip(ap_, ac_))
+    n_acts = sum(a.numel() for a in ap_)
+    loss_rel = {k: abs(lc_[k] - lp_[k]) / max(abs(lp_[k]), 1e-30)
+                for k in lp_}
+    stats_err = {n: max_abs(sc_[n].cpu(), sp_[n]) for n in sp_}
+    # The ResNet's root, conv3 and shortcut biases reach the loss only
+    # through train-mode BatchNorms, which remove any per-channel constant:
+    # their gradients are zero in exact arithmetic (float64 gives ~1e-14),
+    # rounding noise on both devices. They are held to be noise (below
+    # 1e-3 of their convolution weight's gradient, in L2).
+    resnet = {n for n in gp_ if n.startswith("e.resnet_v2_50.")}
+    shadowed = {n for n in resnet if n == "e.resnet_v2_50.conv1.bias"
+                or n.endswith((".conv3.bias", ".shortcut.bias"))}
+    noise = {n: max(float(g[n].norm()) for g in (gp_, gc_))
+             / float(gp_[n[:-len("bias")] + "weight"].norm())
+             for n in shadowed}
+
+    def rel_l2(a, b):
+        a, b = a.cpu().double(), b.cpu().double()
+        return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+    held = sorted(set(gp_) - shadowed)
+    card64 = {n: rel_l2(gc_[n], g64[n]) for n in held}
+    cpu64 = {n: rel_l2(gp_[n], g64[n]) for n in held}
+    card32 = {n: rel_l2(gc_[n], gp_[n]) for n in held}
+    head = {n: card32[n] for n in held if n not in resnet}
+    worst = {k: max(d, key=d.get) for k, d in (
+        ("loss", loss_rel), ("stats", stats_err), ("head", head),
+        ("card64", card64), ("cpu64", cpu64), ("card32", card32))}
+    grad_bound = 2 * cpu64[worst["cpu64"]] + TRAIN_GRAD_REL
+    print(f"train image card vs CPU (B=1, T={IMG_CPU_T}, {config.img_size}"
+          f"x{config.img_size}, the same state; {cpu_s:.1f} s on the CPU): "
+          f"largest relative loss error {loss_rel[worst['loss']]:.3e} "
+          f"({worst['loss']}; bound {TRAIN_LOSS_RTOL:g}); moving averages "
+          f"{stats_err[worst['stats']]:.3e} ({worst['stats']}; bound "
+          f"{IMG_STATS_ATOL:g}); gradients (relative L2) against float64: "
+          f"card {card64[worst['card64']]:.3e} ({worst['card64']}), CPU "
+          f"{cpu64[worst['cpu64']]:.3e} ({worst['cpu64']}; the card's bound "
+          f"twice that + {TRAIN_GRAD_REL:g} = {grad_bound:.3e}); card "
+          f"against CPU {card32[worst['card32']]:.3e} ({worst['card32']}), "
+          f"outside the ResNet {head[worst['head']]:.3e} ({worst['head']}); "
+          f"the "
+          f"{len(shadowed)} biases before BatchNorm: gradient norms at most "
+          f"{max(noise.values()):.3e} of their weight's (bound 1e-3); ReLU "
+          f"inputs (Linear and BatchNorm outputs) of opposite sign on the "
+          f"card and the CPU: {flips} of {n_acts}")
+    for k, v in loss_rel.items():
+        check(v <= TRAIN_LOSS_RTOL, f"image card vs CPU: {k} off by {v}")
+    for n, v in stats_err.items():
+        check(v <= IMG_STATS_ATOL, f"image card vs CPU: {n} off by {v}")
+    check(card64[worst["card64"]] <= grad_bound,
+          f"image card vs float64: d/d{worst['card64']} off by "
+          f"{card64[worst['card64']]}, bound {grad_bound}")
+    for n, v in noise.items():
+        check(v <= 1e-3, f"image card vs CPU: d/d{n} is not noise ({v})")
+    return {"loss_rel": loss_rel[worst["loss"]],
+            "stats": stats_err[worst["stats"]], "head": head[worst["head"]],
+            "card64": card64[worst["card64"]], "cpu64": cpu64[worst["cpu64"]],
+            "card32": card32[worst["card32"]], "flips": flips,
+            "n_acts": n_acts}
+
+
+def phase_train_image(torch, np, dev, smpl, K, smpl_cuda, card):
+    """Phase 13: image-mode training at full width."""
+    import dataclasses
+    import tempfile
+
+    from human_dynamics_tpu_torch.train import main as train_main
+    from human_dynamics_tpu_torch.train.trainer import Trainer
+    from human_dynamics_tpu_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    config = Config(batch_size=IMG_B, T=IMG_T, img_size=IMG,
+                    precomputed_phi=False, feature_dim=2048,
+                    num_kps=SMPL_KPS, use_fused_smpl=True)
+    variants = {
+        "(a) freeze_phi fp32": dict(),
+        "(b) unfrozen bf16": dict(freeze_phi=False, use_bfloat16=True),
+        "(c) unfrozen bf16 remat": dict(freeze_phi=False, use_bfloat16=True,
+                                        remat_resnet=True),
+        "(d) freeze_resnet_stages=3 bf16": dict(
+            freeze_phi=False, freeze_resnet_stages=3, use_bfloat16=True),
+    }
+    trainers = {k: Trainer(dataclasses.replace(config, **kw), smpl,
+                           device=dev) for k, kw in variants.items()}
+    ta, tb, tc, td = trainers.values()
+    batch = image_batch(torch, config, dev, seed=17)
+    n_params = sum(p.numel() for p in ta.state.hmmr.parameters())
+    print(f"train image: Config(batch_size={IMG_B}, T={IMG_T}, img_size="
+          f"{IMG}, precomputed_phi=False, feature_dim=2048, num_kps="
+          f"{SMPL_KPS}, use_fused_smpl=True), {n_params / 1e6:.2f} M HMMR "
+          f"parameters ({sum(p.numel() for p in ta.state.hmmr.resnet_v2_50.parameters()) / 1e6:.2f}"
+          f" M in the ResNet); frames {FRAME}x{FRAME} uint8 made on the card,"
+          f" augmented there (data.augment.augment_batch)")
+    aug = check_augment_card_vs_cpu(torch, config, dev)
+
+    # One step of each variant from the same state, checked.
+    first, mem = {}, {}
+    for name, tr in trainers.items():
+        params0, stats0 = resnet_state(torch, tr.state.hmmr)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all(K, smpl_cuda)
+        first[name] = tr.step(batch)
+        torch.cuda.synchronize()
+        mem[name] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        got = read_counts(K, smpl_cuda)[0][smpl_cuda.KERNEL_NAME]
+        check(got == 1, f"{name}: a step launched K1 {got} times")
+        check(all(np.isfinite(float(v)) for v in first[name].values()),
+              f"{name}: a loss is not finite")
+        params1, stats1 = resnet_state(torch, tr.state.hmmr)
+        check(all(not torch.equal(stats0[n], stats1[n]) for n in stats0),
+              f"{name}: a moving average did not advance")
+        stepped = {id(p) for p in tr.state.opt_e.state}
+        rn = dict(tr.state.hmmr.resnet_v2_50.named_parameters())
+        frozen = {n for n in params0
+                  if name.startswith("(a)") or (name.startswith("(d)") and (
+                      n.startswith(("conv1.", "block1.", "block2."))))}
+        for n in params0:
+            if n in frozen:
+                check(torch.equal(params0[n], params1[n])
+                      and id(rn[n]) not in stepped,
+                      f"{name}: frozen {n} changed or has Adam moments")
+            else:
+                check(id(rn[n]) in stepped and (
+                    n.endswith("bias") or not torch.equal(params0[n],
+                                                          params1[n])),
+                      f"{name}: {n} did not train")
+        print(f"train image {name}: one step, e_loss "
+              f"{float(first[name]['e_loss']):.4f}, d_loss "
+              f"{float(first[name]['d_loss']):.4f}; {len(frozen)} of "
+              f"{len(params0)} ResNet tensors frozen and unchanged, none of "
+              f"them with Adam moments, every other one with moments and "
+              f"every trainable weight moved; every moving average "
+              f"advanced; K1 once")
+    bn, cn = list(trainers)[1:3]
+    remat_err = max(abs(float(first[bn][k]) - float(first[cn][k]))
+                    / max(abs(float(first[bn][k])), 1e-30) for k in first[bn])
+    remat_stats = max(max_abs(a, b) for a, b in zip(
+        tb.state.hmmr.buffers(), tc.state.hmmr.buffers()))
+    print(f"train image remat against no remat, one bf16 step: largest "
+          f"relative loss difference {remat_err:.3e} (bound "
+          f"{REMAT_LOSS_RTOL:g}), moving averages {remat_stats:.3e} (bound "
+          f"{REMAT_STATS_ATOL:g})")
+    check(remat_err <= REMAT_LOSS_RTOL, f"remat: losses off by {remat_err}")
+    check(remat_stats <= REMAT_STATS_ATOL,
+          f"remat: moving averages off by {remat_stats}")
+    del td, trainers["(d) freeze_resnet_stages=3 bf16"]
+
+    # The main path, timed in turns: (a), (b), (c) on the fixed batch.
+    timed = dict(list(trainers.items())[:3])
+    times = {name: [] for name in timed}
+    e_losses = [float(first[bn]["e_loss"])]
+    order = list(timed)
+    reset_all(K, smpl_cuda)
+    n_steps = 0
+    for name in order + order[::-1] + order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = [timed[name].step(batch) for _ in range(N_IMG_TIMED)]
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3 / N_IMG_TIMED)
+        n_steps += N_IMG_TIMED
+        check(all(np.isfinite(float(v)) for m in hist for v in m.values()),
+              f"{name}: a loss is not finite")
+        if name == bn:
+            e_losses += [float(m["e_loss"]) for m in hist]
+    torch.cuda.synchronize()
+    counts, _ = read_counts(K, smpl_cuda)
+    check(counts == {smpl_cuda.KERNEL_NAME: n_steps, K.CONV: 0, K.PREACT: 0,
+                     K.BLOCK: 0},
+          f"train image: launches {counts} over {n_steps} fused steps")
+    check(len(e_losses) >= N_IMG_LEARN and e_losses[-1] < e_losses[0],
+          f"train image: e_loss did not fall: {e_losses}")
+    print(f"train image {len(e_losses)} steps of {bn} on one batch: e_loss "
+          f"{e_losses[0]:.4f} -> {e_losses[-1]:.4f}; launches over the "
+          f"{n_steps} timed steps {counts}")
+    for name, ts in times.items():
+        print(f"smoke timing (not a benchmark) [{card}]: train image step "
+              f"{name}, B={IMG_B} T={IMG_T} {IMG}x{IMG}: "
+              f"{float(np.median(ts)):.2f} ms/step (median of {len(ts)} "
+              f"turns of {N_IMG_TIMED} synchronised steps; all "
+              f"{[round(x, 2) for x in ts]}); the step's device memory "
+              f"above the resident state {mem[name]:.2f} GiB")
+    d_name = "(d) freeze_resnet_stages=3 bf16"
+    print(f"train image {d_name}: the step's device memory above the "
+          f"resident state {mem[d_name]:.2f} GiB (one step, not timed)")
+    print(f"train image: remat saves {mem[bn] - mem[cn]:.2f} GiB of the "
+          f"step's device memory ({mem[bn]:.2f} -> {mem[cn]:.2f} GiB)")
+    if PROFILE:
+        for name in (order[0], bn):
+            profile_run(torch, f"train image step {name}",
+                        lambda: timed[name].step(batch))
+    del timed, trainers, ta, tb, tc, batch
+
+    # The card against the CPU on the same state.
+    cmp = image_card_vs_cpu(torch, np, dev, smpl, dataclasses.replace(
+        config, batch_size=1, T=IMG_CPU_T, freeze_phi=False))
+
+    # End to end: raw_u8 records -> train.main (the pipeline's augment on
+    # the card) -> a checkpoint with the moving averages.
+    with tempfile.TemporaryDirectory() as tmp:
+        write_image_records(np, os.path.join(tmp, "data"))
+        smpl_path = write_smpl_npz(np, tmp)
+        t0 = time.perf_counter()
+        run = train_main.main([
+            "--data_dir", os.path.join(tmp, "data"), "--model_dir",
+            os.path.join(tmp, "run"), "--smpl_model_path", smpl_path,
+            "--datasets", "h36m", "insta_variety", "--batch_size",
+            str(IMG_B), "--T", str(IMG_T), "--img_size", str(IMG),
+            "--precomputed_phi", "false", "--freeze_phi", "false",
+            "--use_bfloat16", "--num_kps", str(SMPL_KPS),
+            "--use_fused_smpl", "--log_step", "1", "--num_steps", "2"])
+        main_s = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "run", "ckpt-2.npz")
+        check(run.state.step == 2 and os.path.exists(ckpt),
+              "train.main in image mode did not write ckpt-2.npz")
+        keys = set(np.load(ckpt).files)
+        check(any("::batch_stats::" in k for k in keys),
+              "the image-mode checkpoint has no batch_stats")
+        print(f"train.main image mode: 2 bf16 steps on raw_u8 records "
+              f"({FRAME}x{FRAME} frames, augmented on the card) in "
+              f"{main_s:.2f} s (pipeline, model init, steps, a "
+              f"{os.path.getsize(ckpt) / 2**20:.0f} MiB checkpoint with "
+              f"batch_stats)")
+        del run
+    print(f"phase 13 (image-mode training) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"image_train_launches": counts[smpl_cuda.KERNEL_NAME],
+            "image_train_steps": n_steps,
+            "ms_per_step": {k: float(np.median(v)) for k, v in times.items()},
+            "mem": mem, "card_vs_cpu": cmp, "augment": aug}
+
+
 def main():
     import numpy as np
     import torch
@@ -1631,12 +2106,17 @@ def main():
     # Phase 12: phi-mode training.
     train = phase_train(torch, np, dev, smpl, K, smpl_cuda, card)
 
+    # Phase 13: image-mode training.
+    image = phase_train_image(torch, np, dev, smpl, K, smpl_cuda, card)
+
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [
         dict(name=smpl_cuda.KERNEL_NAME, source=csrc + "smpl_blend_skin.cu",
              replaces="human_dynamics_tpu/ops/smpl_pallas.py:108",
              launches=launches, train_launches=train["train_launches"],
-             train_steps=train["train_steps"], **k1),
+             train_steps=train["train_steps"],
+             image_train_launches=image["image_train_launches"],
+             image_train_steps=image["image_train_steps"], **k1),
         dict(name=K.BLOCK, source=csrc + "resnet_int8.cu",
              replaces="human_dynamics_tpu/ops/resnet_int8_pallas.py:151",
              **int8["k2"]),
@@ -1649,10 +2129,12 @@ def main():
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K1 also runs on the training path: its launches over the phase-12
-    # steps, and its times at a training step's N.
+    # K1 also runs on the training paths: its launches over the phase-12
+    # steps and the phase-13 timed steps, and its times at a training
+    # step's N.
     train_keys = ("train_launches", "train_steps", "train_n", "train_ms",
-                  "train_plain_ms", "train_bound_ms")
+                  "train_plain_ms", "train_bound_ms", "image_train_launches",
+                  "image_train_steps")
     print(json.dumps({"kernels": [
         {k: dict(kern, route="cuda")[k] for k in keys
          + tuple(k for k in train_keys if k in kern)} for kern in kernels

@@ -1,9 +1,8 @@
-"""Training input pipeline, phi mode: tfrecord shards -> balanced batches.
+"""Training input pipeline: tfrecord shards -> balanced batches.
 
-Counterpart of the precomputed-phi path of
-``human_dynamics_tpu/data/loader.py``, reading records with the port's
-pure-Python ``data.tfrecord`` codec, and yielding the same batches as the
-JAX pipeline for the same records and seed:
+Counterpart of ``human_dynamics_tpu/data/loader.py``, reading records with
+the port's pure-Python ``data.tfrecord`` codec. In phi mode it yields the
+same batches as the JAX pipeline for the same records and seed:
 
 - 2D/3D split balancing: each batch is half in-the-wild 2-D data, half 3-D
   (h36m) data, shuffled.
@@ -11,8 +10,16 @@ JAX pipeline for the same records and seed:
 - A mocap real-pose pool sized exactly to the discriminator's fake pool.
 - A background thread assembles numpy batches ahead of the consumer.
 
-One process reads every shard. Image-mode records (decoded frames for
-training the ResNet) are not ported.
+Image mode (``precomputed_phi=False``) reads the frames of the sampled
+window: JPEG records (cv2, imported only to decode them) or pre-decoded
+``raw_u8`` records. They ride the shuffle buffer still encoded, with the
+buffer's bytes bounded, and are decoded as they leave it; the batch's tubes
+then go to the device as uint8 and through ``data.augment`` in one batched
+call, with the augmentation drawn from a generator on the device seeded from
+``config.seed``. An image batch holds tensors on the pipeline's device (the
+CUDA device unless the CPU is asked for).
+
+One process reads every shard.
 """
 
 from __future__ import annotations
@@ -30,12 +37,6 @@ from human_dynamics_tpu_torch.data.tfrecord import decode_example, read_tfrecord
 
 THREED_DATASETS = ("h36m",)
 
-_IMAGE_MODE = (
-    "image-mode training data (decoded frames) is not ported: the port "
-    "trains on precomputed phi (the image-mode training slice is ROADMAP "
-    "Queue 1 item 4b)"
-)
-
 
 def get_all_files(dataset_dir: str, datasets: Sequence[str],
                   split: str = "train") -> List[str]:
@@ -51,22 +52,41 @@ def get_all_files(dataset_dir: str, datasets: Sequence[str],
     return files
 
 
+def _item_nbytes(item: Dict) -> int:
+    """The host memory one buffered example holds, about: its arrays and
+    its encoded frames."""
+    return sum(v.nbytes if isinstance(v, np.ndarray)
+               else sum(map(len, v)) if isinstance(v, list) else 64
+               for v in item.values())
+
+
 def shuffle_buffered(iterator: Iterator, rng: np.random.RandomState,
-                     capacity: int = 300) -> Iterator:
+                     capacity: int = 300,
+                     max_bytes: Optional[int] = None) -> Iterator:
     """Items in random order from a rolling buffer of ``capacity`` items,
-    decorrelating consecutive tubes of one shard."""
+    decorrelating consecutive tubes of one shard. With ``max_bytes``,
+    random items leave first whenever a new one would take the buffer
+    over that many bytes."""
     if capacity <= 1:
         yield from iterator
         return
     buf: List = []
+    sizes: List[int] = []
+    total = 0
     for item in iterator:
-        while len(buf) >= capacity:
+        sz = _item_nbytes(item) if max_bytes is not None else 0
+        while buf and (len(buf) >= capacity
+                       or (max_bytes is not None and total + sz > max_bytes)):
             idx = rng.randint(len(buf))
             out = buf[idx]
             buf[idx] = buf[-1]
+            sizes[idx] = sizes[-1]
             buf.pop()
+            total -= sizes.pop()
             yield out
         buf.append(item)
+        sizes.append(sz)
+        total += sz
     for idx in rng.permutation(len(buf)):
         yield buf[idx]
 
@@ -88,20 +108,22 @@ def _pad_to_t(arr: np.ndarray, t: int) -> np.ndarray:
 
 
 class ExampleStream:
-    """Infinite shuffled stream of per-tube training examples (phi
-    records)."""
+    """Infinite shuffled stream of per-tube training examples: phi records
+    or, with ``decode_images``, the window's frames (uint8) with their
+    keypoints in source pixels and person centres."""
 
     def __init__(self, files: List[str], t: int, num_kps: int = 25,
                  seed: int = 0, decode_images: bool = False,
-                 shuffle_buffer: int = 300):
-        if decode_images:
-            raise NotImplementedError(_IMAGE_MODE)
+                 shuffle_buffer: int = 300,
+                 shuffle_bytes: Optional[int] = None):
         if not files:
             raise FileNotFoundError("No tfrecord shards found")
         self.files = files
         self.t = t
         self.num_kps = num_kps
+        self.decode_images = decode_images
         self.shuffle_buffer = shuffle_buffer
+        self.shuffle_bytes = shuffle_bytes
         self.rng = np.random.RandomState(seed)
 
     def _raw_stream(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -109,20 +131,24 @@ class ExampleStream:
             for fi in self.rng.permutation(len(self.files)):
                 for serialized in read_tfrecord(self.files[fi]):
                     ex = parse_temporal_example(serialized)
-                    if ex.phis is None:
+                    missing = (ex.image_datas is None if self.decode_images
+                               else ex.phis is None)
+                    if missing:
                         raise ValueError(
-                            f"{self.files[fi]}: a record without phis; "
-                            f"{_IMAGE_MODE}")
+                            f"{self.files[fi]}: a record without "
+                            + ("frames" if self.decode_images else "phis"))
                     window = pick_window(ex.n, self.t, self.rng)
                     yield self._make_example(ex, window)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        return shuffle_buffered(self._raw_stream(), self.rng,
-                                self.shuffle_buffer)
+        shuffled = shuffle_buffered(self._raw_stream(), self.rng,
+                                    self.shuffle_buffer,
+                                    max_bytes=self.shuffle_bytes)
+        return (self._finalize(d) for d in shuffled)
 
     def _make_example(self, ex, window) -> Dict[str, np.ndarray]:
         t = self.t
-        return {
+        out = {
             "kps": _pad_to_t(ex.kps[window], t)[:, :self.num_kps].astype(
                 np.float32),
             "poses": _pad_to_t(ex.poses[window], t).astype(np.float32),
@@ -130,8 +156,45 @@ class ExampleStream:
             "gt3ds": _pad_to_t(ex.gt3ds[window], t).astype(np.float32),
             "has_3d_joints": np.float32(ex.has_3d_joints),
             "has_3d_smpl": np.float32(ex.has_3d),
-            "phis": _pad_to_t(ex.phis[window], t).astype(np.float32),
         }
+        if ex.phis is not None:
+            out["phis"] = _pad_to_t(ex.phis[window], t).astype(np.float32)
+        if self.decode_images:
+            # The frames stay encoded through the shuffle buffer and are
+            # decoded in _finalize; keypoints stay in source pixels, (3, K),
+            # for the augmentation.
+            out["_frames"] = [bytes(d) for d in ex.image_datas[window]]
+            if ex.image_format == b"raw_u8":
+                out["_raw_hw"] = ex.image_shapes[window]
+            out["labels_raw"] = _pad_to_t(
+                np.transpose(ex.kps[window], (0, 2, 1)), t
+            )[:, :, :self.num_kps].astype(np.float32)
+            out["centers"] = _pad_to_t(
+                ex.centers[window].astype(np.float32), t)
+        return out
+
+    def _finalize(self, out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Decode the frames (if any) into uint8 "images" (T, H, W, 3)."""
+        frames = out.pop("_frames", None)
+        raw_hw = out.pop("_raw_hw", None)
+        if frames is None:
+            return out
+        if raw_hw is not None:
+            imgs = np.stack([
+                np.frombuffer(d, np.uint8).reshape(int(h), int(w), 3)
+                for d, (h, w) in zip(frames, raw_hw)
+            ])
+        else:
+            import cv2
+
+            imgs = np.stack([
+                cv2.cvtColor(cv2.imdecode(np.frombuffer(d, np.uint8),
+                                          cv2.IMREAD_COLOR),
+                             cv2.COLOR_BGR2RGB)
+                for d in frames
+            ])
+        out["images"] = _pad_to_t(imgs, self.t)
+        return out
 
 
 class MocapStream:
@@ -177,14 +240,14 @@ class MocapStream:
 
 class TrainDataPipeline:
     """Split-balanced batches and the mocap pool, assembled by a prefetch
-    thread. Iterating yields ``train.trainer.Batch``es of numpy arrays;
-    ``close`` stops the thread."""
+    thread. Iterating yields ``train.trainer.Batch``es: numpy arrays in phi
+    mode; in image mode tensors on ``device`` (None: the CUDA device,
+    raising without one), the frames augmented there. ``close`` stops the
+    thread."""
 
-    def __init__(self, config, prefetch: int = 2):
+    def __init__(self, config, prefetch: int = 2, device=None):
         from human_dynamics_tpu_torch.train.trainer import fake_pool_size
 
-        if not config.precomputed_phi:
-            raise NotImplementedError(_IMAGE_MODE)
         self.config = config
         self.pool_size = fake_pool_size(config)
 
@@ -207,10 +270,27 @@ class TrainDataPipeline:
         elif not files_3d:
             files_2d, files_3d = split_list(files_2d)
 
+        decode_images = not config.precomputed_phi
+        # Image tubes ride the buffer encoded; the byte cap bounds the
+        # host memory of each stream.
+        shuffle_bytes = (1 << 30) if decode_images else None
         self.stream_2d = iter(ExampleStream(
-            files_2d, config.T, config.num_kps, config.seed))
+            files_2d, config.T, config.num_kps, config.seed,
+            decode_images=decode_images, shuffle_bytes=shuffle_bytes))
         self.stream_3d = iter(ExampleStream(
-            files_3d, config.T, config.num_kps, config.seed + 1))
+            files_3d, config.T, config.num_kps, config.seed + 1,
+            decode_images=decode_images, shuffle_bytes=shuffle_bytes))
+        self.device = None
+        if decode_images:
+            import torch
+
+            from human_dynamics_tpu_torch.infer.predictor import (
+                resolve_device,
+            )
+
+            self.device = resolve_device(device)
+            self.augment_generator = torch.Generator(
+                device=self.device).manual_seed(config.seed * 100003)
         self.mocap = iter(MocapStream(
             MocapStream.mocap_files(config.data_dir, config.mocap_datasets),
             seed=config.seed,
@@ -234,6 +314,8 @@ class TrainDataPipeline:
 
         poses_real = np.stack(
             [next(self.mocap)[0] for _ in range(self.pool_size)])
+        if not self.config.precomputed_phi:
+            return self._assemble_image_batch(examples, poses_real)
         return Batch(
             phis=stack("phis"),
             kps=stack("kps"),
@@ -243,6 +325,47 @@ class TrainDataPipeline:
             has_3d_joints=stack("has_3d_joints"),
             has_3d_smpl=stack("has_3d_smpl"),
             poses_real=poses_real.reshape(self.pool_size, 24, 3),
+        )
+
+    def _assemble_image_batch(self, examples, poses_real):
+        """The batch's frames to the device as uint8 and through one
+        batched augmentation call."""
+        import torch
+
+        from human_dynamics_tpu_torch.data.augment import (
+            augment_batch,
+            sample_tube_params,
+        )
+        from human_dynamics_tpu_torch.train.trainer import Batch
+
+        c = self.config
+        b, t = c.batch_size, c.T
+
+        def dev(key, fn=lambda x: x):
+            return torch.from_numpy(
+                np.stack([fn(e[key]) for e in examples])).to(self.device)
+
+        params = sample_tube_params(
+            self.augment_generator, b, t, trans_max=c.trans_max,
+            delta_trans_max=c.delta_trans_max, scale_max=c.scale_max,
+            delta_scale_max=c.delta_scale_max, rotate_max=c.rotate_max,
+            delta_rotate_max=c.delta_rotate_max,
+        )
+        crops, kps, poses, gt3ds = augment_batch(
+            dev("images"), dev("labels_raw"), dev("centers"),
+            dev("poses", lambda p: p.reshape(t, 72)), dev("gt3ds"), params,
+            output_size=c.img_size, apply_rotation=c.rotate_max != 0,
+        )
+        return Batch(
+            phis=crops,
+            kps=kps,
+            poses_gt=poses.reshape(b, t, 24, 3),
+            shapes_gt=dev("shape"),
+            joints_gt=gt3ds,
+            has_3d_joints=dev("has_3d_joints"),
+            has_3d_smpl=dev("has_3d_smpl"),
+            poses_real=torch.from_numpy(
+                poses_real.reshape(self.pool_size, 24, 3)).to(self.device),
         )
 
     def _worker(self):

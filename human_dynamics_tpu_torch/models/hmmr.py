@@ -6,9 +6,11 @@ temporal-encoder branch and the hallucinator branch. The delta heads
 start from the present omega, regress the 72 pose values, and then get
 the camera [1, 0, 0] and the starting beta re-attached.
 
-``forward(inputs, train=True, generator=g)`` is phi-mode training: every
-IEF call of every head and branch applies dropout with masks from ``g``.
-Image-mode training (train-mode BatchNorm in the ResNet) is not ported.
+``forward(inputs, train=True, generator=g)`` is training: every IEF call
+of every head and branch applies dropout with masks from ``g``, and on
+images the ResNet's BatchNorm normalises with the batch's statistics
+(unless ``freeze_bn_stats``); its moving averages advance only inside
+``models.resnet.updating_batch_stats``.
 """
 
 from __future__ import annotations
@@ -96,6 +98,8 @@ class HmmrModel(nn.Module):
         num_stage: int = 3,
         use_delta_from_pred: bool = True,
         include_resnet: bool = False,
+        remat_resnet: bool = False,
+        freeze_bn_stats: bool = False,
         feature_dim: int = 2048,
         mean_omega_init: Optional[np.ndarray] = None,
         device=None,
@@ -111,10 +115,14 @@ class HmmrModel(nn.Module):
         self.num_stage = num_stage
         self.use_delta_from_pred = use_delta_from_pred
         self.include_resnet = include_resnet
+        # Inference-mode BatchNorm in training too (fine-tuning from a
+        # pretrained trunk with its statistics fixed).
+        self.freeze_bn_stats = freeze_bn_stats
         self.feature_dim = feature_dim
 
         if include_resnet:
-            self.resnet_v2_50 = ResNetV2_50(device=device, generator=generator)
+            self.resnet_v2_50 = ResNetV2_50(device=device, generator=generator,
+                                            remat=remat_resnet)
         if not use_hmr_only:
             self.temporal_encoder = TemporalEncoderFC2GN(
                 num_layers=num_conv_layers, num_filter=feature_dim,
@@ -147,10 +155,12 @@ class HmmrModel(nn.Module):
         """Temporal receptive field."""
         return 4 * self.num_conv_layers + 1
 
-    def encode_images(self, images: torch.Tensor) -> torch.Tensor:
+    def encode_images(self, images: torch.Tensor,
+                      train: bool = False) -> torch.Tensor:
         """images (B, T, H, W, 3) in [-1, 1] -> phi (B, T, 2048)."""
         b, t = images.shape[:2]
-        phi = self.resnet_v2_50(images.reshape((b * t,) + images.shape[2:]))
+        phi = self.resnet_v2_50(images.reshape((b * t,) + images.shape[2:]),
+                                train=train and not self.freeze_bn_stats)
         return phi.reshape(b, t, -1)
 
     def _pred_heads(
@@ -187,16 +197,11 @@ class HmmrModel(nn.Module):
     def forward(self, inputs: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> HmmrOutputs:
         """``train`` turns the IEF dropout on, with masks drawn from
-        ``generator``."""
+        ``generator``, and the ResNet's batch-statistics BatchNorm."""
         if inputs.dim() == 5:
             if not self.include_resnet:
                 raise ValueError("Model built without resnet but got image input")
-            if train:
-                raise NotImplementedError(
-                    "image-mode training (train-mode BatchNorm) is not "
-                    "ported; train on precomputed phi"
-                )
-            phi = self.encode_images(inputs)
+            phi = self.encode_images(inputs, train)
         else:
             phi = inputs
 

@@ -1,4 +1,4 @@
-"""ResNet-50 v2 (pre-activation) per-frame feature encoder, inference form.
+"""ResNet-50 v2 (pre-activation) per-frame feature encoder.
 
 Counterpart of ``human_dynamics_tpu/models/resnet.py`` (TF-slim
 ``resnet_v2_50`` with global pooling: 2048-D phi per frame). What the
@@ -11,7 +11,14 @@ slim layout needs, kept exactly:
   the odd kernels used here that equals the stride-1 "SAME" padding.
 - The root 3x3/2 max pool is XLA "SAME": for an even input it pads (0, 1),
   not (1, 1), so it pads explicitly with -inf.
-- BatchNorm uses its moving statistics (eps 1e-5).
+- BatchNorm (eps 1e-5) uses its moving statistics, or with ``train=True``
+  the batch's mean and biased variance over N, H, W. Its moving averages
+  (decay 0.997, fp32) advance only inside ``updating_batch_stats``, the
+  counterpart of flax's ``mutable=["batch_stats"]``, and once per BatchNorm
+  there: a unit that ``remat`` recomputes in the backward does not advance
+  them again.
+- ``remat`` checkpoints each bottleneck unit (``nn.remat`` in the JAX
+  package): only unit inputs are kept for the backward.
 
 The public input is NHWC, as in the JAX package; it is permuted to NCHW
 once at the trunk's entry. Module names follow the flax tree
@@ -21,12 +28,15 @@ once at the trunk's entry. Module names follow the flax tree
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from human_dynamics_tpu_torch.models.init import lecun_normal_
 
@@ -34,8 +44,10 @@ RESNET50_BLOCKS = ((3, 256, 64), (4, 512, 128), (6, 1024, 256), (3, 2048, 512))
 
 
 class SlimBatchNorm(nn.Module):
-    """Inference BatchNorm with slim's names: gamma, beta, moving_mean,
-    moving_variance (eps 1e-5)."""
+    """BatchNorm with slim's names: gamma, beta, moving_mean,
+    moving_variance (eps 1e-5, moving-average decay 0.997)."""
+
+    momentum = 0.997
 
     def __init__(self, channels: int, epsilon: float = 1e-5, device=None):
         super().__init__()
@@ -44,12 +56,49 @@ class SlimBatchNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("moving_mean", torch.zeros(channels, device=device))
         self.register_buffer("moving_variance", torch.ones(channels, device=device))
+        # Set by updating_batch_stats; cleared by the update it allows.
+        self.update_pending = False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (N, C, H, W)."""
-        inv = torch.rsqrt(self.moving_variance + self.epsilon) * self.gamma
-        shift = self.beta - self.moving_mean * inv
-        return x * inv[:, None, None] + shift[:, None, None]
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x (N, C, H, W). With ``train`` it normalises with the batch's
+        statistics; else with the moving ones, which stay fp32 buffers under
+        a bf16 ``x`` in training, and the result is cast back to ``x``'s
+        type (flax would promote it, and the rest of the trunk, to fp32)."""
+        if not train:
+            inv = torch.rsqrt(self.moving_variance + self.epsilon) * self.gamma
+            shift = self.beta - self.moving_mean * inv
+            return (x * inv[:, None, None] + shift[:, None, None]).to(x.dtype)
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.var(dim=(0, 2, 3), unbiased=False)
+        if self.update_pending:
+            self.update_pending = False
+            m = self.momentum
+            with torch.no_grad():
+                # In the buffers' fp32, as flax accumulates in the stored
+                # dtype: a 0.003-scale increment would vanish in bf16.
+                self.moving_mean.copy_(
+                    m * self.moving_mean
+                    + (1.0 - m) * mean.detach().to(self.moving_mean.dtype))
+                self.moving_variance.copy_(
+                    m * self.moving_variance
+                    + (1.0 - m) * var.detach().to(self.moving_variance.dtype))
+        inv = torch.rsqrt(var + self.epsilon) * self.gamma
+        return x * inv[:, None, None] + (self.beta - mean * inv)[:, None, None]
+
+
+@contextlib.contextmanager
+def updating_batch_stats(module: nn.Module):
+    """Inside, each train-mode SlimBatchNorm of ``module`` advances its moving
+    averages at its first call, in place; later calls (a remat recompute, a
+    second forward) only normalise."""
+    bns = [m for m in module.modules() if isinstance(m, SlimBatchNorm)]
+    for bn in bns:
+        bn.update_pending = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_pending = False
 
 
 def _conv(cin, cout, kernel, stride, bias, device):
@@ -89,15 +138,29 @@ class BottleneckV2(nn.Module):
         self.conv2_bn = SlimBatchNorm(depth_bottleneck, device=device)
         self.conv3 = _conv(depth_bottleneck, depth, 1, 1, True, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        preact = F.relu(self.preact(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        preact = F.relu(self.preact(x, train))
         if self.shortcut is None:
             shortcut = x[:, :, ::self.stride, ::self.stride]
         else:
             shortcut = self.shortcut(preact)
-        residual = F.relu(self.conv1_bn(self.conv1(preact)))
-        residual = F.relu(self.conv2_bn(self.conv2(residual)))
+        residual = F.relu(self.conv1_bn(self.conv1(preact), train))
+        residual = F.relu(self.conv2_bn(self.conv2(residual), train))
         return shortcut + self.conv3(residual)
+
+
+def _rematerialised(unit: BottleneckV2, x: torch.Tensor, train: bool):
+    """``unit(x, train)`` keeping only ``x`` for the backward, which runs
+    the unit again. The unit's parameters go in as arguments, so that the
+    recompute sees the tensors the forward saw (the bf16 casts under
+    ``torch.func.functional_call``), not the module's own."""
+    names, tensors = zip(*unit.named_parameters())
+
+    def run(x, *tensors):
+        return functional_call(unit, dict(zip(names, tensors)), (x, train))
+
+    return checkpoint(run, x, *tensors, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class ResNetV2_50(nn.Module):
@@ -108,8 +171,10 @@ class ResNetV2_50(nn.Module):
         blocks: Sequence[Tuple[int, int, int]] = RESNET50_BLOCKS,
         device=None,
         generator: Optional[torch.Generator] = None,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.conv1 = _conv(3, 64, 7, 2, True, device)
         depth_in = 64
         self.num_blocks = len(blocks)
@@ -134,11 +199,14 @@ class ResNetV2_50(nn.Module):
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """``train``: BatchNorm on the batch's statistics."""
         net = self.conv1(x.permute(0, 3, 1, 2))
         net = max_pool_same(net)
+        remat = self.remat and torch.is_grad_enabled()
         for bi in range(1, self.num_blocks + 1):
             for unit in getattr(self, f"block{bi}").values():
-                net = unit(net)
-        net = F.relu(self.postnorm(net))
+                net = (_rematerialised(unit, net, train) if remat
+                       else unit(net, train))
+        net = F.relu(self.postnorm(net, train))
         return net.mean(dim=(2, 3))

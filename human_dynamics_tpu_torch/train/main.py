@@ -1,8 +1,10 @@
-"""Training entry point (phi mode).
+"""Training entry point.
 
 Counterpart of ``human_dynamics_tpu/train/main.py``: Config -> model_dir
 (+ params.json) -> data pipeline -> Trainer with auto-resume (and warm
-start) -> train loop -> a final checkpoint. One process on one device.
+start) -> train loop -> a final checkpoint. One process on one device. With
+``--precomputed_phi false`` it trains on images through the ResNet (the
+pipeline augments them on the device).
 
     python -m human_dynamics_tpu_torch.train.main \\
         --data_dir /path/to/tf_datasets \\
@@ -81,11 +83,11 @@ def main(argv=None):
     print(f"[*] MODEL dir: {config.model_dir}")
 
     smpl = load_smpl_model(config.smpl_model_path, joint_type="cocoplus")
-    pipeline = TrainDataPipeline(config)
+    pipeline = TrainDataPipeline(config, device=device)
 
     def device_batches():
         for batch in pipeline:
-            yield Batch(*[torch.from_numpy(x).to(device) for x in batch])
+            yield Batch(*[torch.as_tensor(x, device=device) for x in batch])
 
     logger = MetricLogger(config.model_dir)
     try:

@@ -1,7 +1,7 @@
-"""HMMR training on precomputed phi: the two-optimizer GAN step and its
-training loop.
+"""HMMR training: the two-optimizer GAN step and its training loop.
 
-Counterpart of ``human_dynamics_tpu/train/trainer.py``, phi mode. Every
+Counterpart of ``human_dynamics_tpu/train/trainer.py``, on precomputed phi
+or, with ``precomputed_phi=False``, on images through the ResNet. Every
 prediction head is decoded by one stacked SMPL call (the fused blend+skin
 kernel with ``use_fused_smpl``; its backward differentiates the composed
 SMPL forward, as the JAX custom VJP does), then every loss is computed.
@@ -31,9 +31,14 @@ joined with '::'): ``params_e::params::...``, ``params_d::params::...``,
 ``load_checkpoint`` and the port's ``eval.harness.load_model_variables``
 both read them.
 
-Image-mode training (the ResNet in the step, train-mode BatchNorm,
-``freeze_bn_stats``, ``remat_resnet``) is not ported: ``build_models``
-raises for ``precomputed_phi=False``.
+In image mode the step runs the ResNet with train-mode BatchNorm (batch
+statistics, unless ``freeze_bn_stats``) and advances its moving averages
+once per step, in fp32 under ``use_bfloat16`` too (the bf16 casts cover the
+parameters, not the buffers); ``remat_resnet`` checkpoints each bottleneck
+unit. ``freeze_phi`` leaves the whole ResNet out of the gradient and of
+Adam, ``freeze_resnet_stages`` = n its root and blocks 1..n-1; as the
+images take no gradient, no backward runs below the first trainable
+stage. The moving averages are ``batch_stats`` in the checkpoints.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from human_dynamics_tpu_torch.models.omega import (
     compute_smpl,
     split_omega,
 )
+from human_dynamics_tpu_torch.models.resnet import updating_batch_stats
 from human_dynamics_tpu_torch.ops.smpl_cuda import (
     FusedSmplConstants,
     prepare_fused_constants,
@@ -92,7 +98,8 @@ class Batch(NamedTuple):
     """One training minibatch (tensors on the trainer's device; the data
     pipeline yields it as numpy arrays).
 
-    phis (B, T, feature_dim); kps (B, T, K, 3) with visibility; poses_gt
+    phis (B, T, feature_dim), or images (B, T, S, S, 3) in [-1, 1] in image
+    mode; kps (B, T, K, 3) with visibility; poses_gt
     (B, T, 24, 3) axis-angle; shapes_gt (B, 10); joints_gt (B, T, 14, 3);
     has_3d_joints, has_3d_smpl (B,) float flags; poses_real: the mocap pool
     for the adversarial prior, (P, 24, 3) axis-angle or (P, 24, 3, 3)
@@ -138,13 +145,10 @@ def fake_pool_size(config: Config) -> int:
 def build_models(config: Config, device=None,
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[HmmrModel, PoseDiscriminator]:
-    """The HMMR model (phi input) and the discriminator, initialised from
-    ``generator``."""
-    if not config.precomputed_phi:
-        raise NotImplementedError(
-            "image-mode training (precomputed_phi=False) is not ported: "
-            "the port trains on precomputed phi"
-        )
+    """The HMMR model (with the ResNet unless ``precomputed_phi``) and the
+    discriminator on ``device`` (None: the CUDA device, raising without
+    one), initialised from ``generator``."""
+    device = resolve_device(device)
     hmmr = HmmrModel(
         num_conv_layers=config.num_conv_layers,
         delta_t_values=tuple(config.delta_t_values),
@@ -154,7 +158,9 @@ def build_models(config: Config, device=None,
         use_hmr_only=config.use_hmr_only,
         num_stage=config.num_stage,
         use_delta_from_pred=config.use_delta_from_pred,
-        include_resnet=False,
+        include_resnet=not config.precomputed_phi,
+        remat_resnet=config.remat_resnet,
+        freeze_bn_stats=config.freeze_bn_stats,
         feature_dim=config.feature_dim,
         mean_omega_init=resolve_mean_omega(config.smpl_mean_path),
         device=device,
@@ -272,19 +278,23 @@ def compute_losses(
 ):
     """Returns (e_loss, d_loss, metrics dict of every loss and both sums).
 
-    ``train`` turns the IEF dropout on (masks from ``generator``).
-    ``fused_constants`` (only with ``use_fused_smpl``) are the fused
+    ``train`` turns the IEF dropout on (masks from ``generator``) and, in
+    image mode, the ResNet's train-mode BatchNorm, whose moving averages
+    advance in place. ``fused_constants`` (only with ``use_fused_smpl``) are the fused
     kernel's constants, prepared once by the caller.
     """
     b, t = batch.phis.shape[0], config.T
-    if config.use_bfloat16:
-        params = to_bf16(dict(hmmr.named_parameters()))
-        out = _outputs_f32(functional_call(
-            hmmr, params, (batch.phis.to(torch.bfloat16),),
-            {"train": train, "generator": generator},
-        ))
-    else:
-        out = hmmr(batch.phis, train=train, generator=generator)
+    with (updating_batch_stats(hmmr) if train else contextlib.nullcontext()):
+        if config.use_bfloat16:
+            # The buffers (BatchNorm's moving averages) stay the module's
+            # own fp32 tensors.
+            params = to_bf16(dict(hmmr.named_parameters()))
+            out = _outputs_f32(functional_call(
+                hmmr, params, (batch.phis.to(torch.bfloat16),),
+                {"train": train, "generator": generator},
+            ))
+        else:
+            out = hmmr(batch.phis, train=train, generator=generator)
 
     gt = OmegaGt.create(batch.poses_gt, batch.shapes_gt, batch.joints_gt,
                         batch.kps)

@@ -575,8 +575,10 @@ def test_data_pipeline_matches_jax(tmp_path):
     finally:
         jp.close()
         pp.close()
-    with pytest.raises(NotImplementedError, match="image"):
-        PL.ExampleStream(["x"], 20, decode_images=True)
+    # These records carry phis and no frames: image mode refuses them.
+    with pytest.raises(ValueError, match="without frames"):
+        next(iter(PL.ExampleStream(PL.get_all_files(str(tmp_path), ["h36m"]),
+                                   20, decode_images=True)))
 
 
 def test_train_main_writes_a_checkpoint_the_port_reads(tmp_path):
