@@ -106,6 +106,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    moving averages, gradients, ReLU sign flips counted); train.main on
    raw_u8 records for 2 bf16 steps. With --profile, a breakdown of one
    (a) and one (b) step.
+14. Multi-GPU inference, at full width (HmmrModel(include_resnet=True),
+   synthetic_smpl_model(6890, 25), B=8, T=20, the bench config of phase 5
+   and an fp32 predictor): first world 1 on NCCL in this process, then two
+   ranks sharing the card over gloo (and NCCL over every card where two or
+   more are visible) as subprocesses of this script (--mesh-worker), each
+   rank failing the phase. On every world: predict_all_images_sharded on
+   the 480-frame clip's features (fp32 tail within 2e-5 of
+   predict_all_images, bf16 tail within the streaming bound) and on its
+   uint8 frames (rank 0 encodes), with every rank's launch counts and K1
+   held to its plain version on the operands it got; predict_clip_sharded
+   on a 1000-frame clip and predict_clips_sharded_2d on a (1, W) mesh
+   against the unsharded full-clip forward (HALO_TOL); PredictionService
+   (mesh, both modes, rank 0 serving, the others following) equal to the
+   direct sharded calls. World 1 also times sharded against direct, the
+   halo clip against the unsharded forward, and the service with a mesh
+   against direct calls.
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -182,6 +198,21 @@ AUG_PIXEL_ATOL, AUG_LABEL_ATOL = 5e-4, 1e-4
 # remat against no remat, one bf16 step from the same state: the forward is
 # the same kernels on the same inputs, so equal is expected.
 REMAT_LOSS_RTOL, REMAT_STATS_ATOL = 1e-6, 1e-7
+# Phase 14: multi-GPU inference. The halo path's long clip, and the 1 x W
+# mesh's clips (cut from the long clip's features).
+N_HALO = 1000
+CLIPS_2D = (2, 240)
+# predict_all_images_sharded against predict_all_images with an fp32 window
+# tail: tests/test_service.py's bound for the JAX sharded path. A bf16 tail
+# is held to the streaming bound above (other GEMM batch sizes per rank).
+SHARDED_FP32_TOL = 2e-5
+# The halo path (one-pass variance, each conv as three matmuls) against the
+# unsharded TemporalEncoderFC2GN (F.group_norm, nn.Conv1d) on the 1000-frame
+# clip at C = 2048, fp32 without TF32: measured on an H100 at world 1,
+# omegas 9.537e-07 and 1.639e-06 over every key (verts); held at about 6x.
+HALO_TOL = {"omegas": 1e-5, "all": 1e-5}
+N_MESH_TURNS = 3
+MESH_WORKER_TIMEOUT = 600
 PROFILE = "--profile" in sys.argv[1:]
 TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
 
@@ -1926,6 +1957,418 @@ def phase_train_image(torch, np, dev, smpl, K, smpl_cuda, card):
             "mem": mem, "card_vs_cpu": cmp, "augment": aug}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: multi-GPU inference
+# ---------------------------------------------------------------------------
+
+
+def mesh_case(torch, dev):
+    """Phase 14's full-width model, predictors and clips, made from seeds:
+    the same in every process that makes them on the same card."""
+    from types import SimpleNamespace
+
+    from human_dynamics_tpu_torch.core import synthetic_smpl_model
+    from human_dynamics_tpu_torch.infer import HmmrPredictor
+    from human_dynamics_tpu_torch.models import HmmrModel
+
+    smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS,
+                                device=dev)
+    model = HmmrModel(include_resnet=True, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def clip(n):
+        return torch.randint(0, 256, (n, IMG, IMG, 3), dtype=torch.uint8,
+                             device=dev, generator=gen)
+
+    frames, calib, halo_frames = clip(N_FRAMES), clip(N_CALIB), clip(N_HALO)
+    kw = dict(batch_size=8, seq_length=20, use_fused_smpl=True, device=dev)
+    return SimpleNamespace(
+        model=model, smpl=smpl, frames=frames, halo_frames=halo_frames,
+        bench=HmmrPredictor(model, None, smpl, int8_encoder=True,
+                            int8_calibration=calib, bf16_temporal=True, **kw),
+        fp32=HmmrPredictor(model, None, smpl, **kw),
+    )
+
+
+def unsharded_clip(torch, model, smpl, phi):
+    """The full-clip forward on one device: the port's TemporalEncoderFC2GN
+    (F.group_norm, nn.Conv1d) on the whole clip, then the halo path's own
+    heads and composed decode (the same per-frame code)."""
+    from human_dynamics_tpu_torch.parallel.halo import _heads_and_decode
+    from human_dynamics_tpu_torch.utils.precision import full_fp32
+
+    with torch.inference_mode(), full_fp32():
+        strip = model.temporal_encoder(phi[None])
+        out = _heads_and_decode(model, smpl, strip, True)
+    return {k: v[0] for k, v in out.items()}
+
+
+def check_sharded(torch, what, pred, got, want):
+    """Sharded against direct: the same keys and shapes; with an fp32
+    window tail every key within SHARDED_FP32_TOL, with a bf16 tail the
+    omegas of every head within the streaming bound. Returns the max
+    errors."""
+    check(set(got) == set(want), f"{what}: keys {sorted(got)}")
+    for k in want:
+        check(got[k].shape == want[k].shape,
+              f"{what}: {k} {tuple(got[k].shape)} != {tuple(want[k].shape)}")
+    errs = {k: max_abs(got[k], want[k]) for k in sorted(want)}
+    if pred.bf16_temporal:
+        share = max(float(((got[k] - want[k]).abs()
+                           / (STREAM_BF16_OMEGA_TOL + STREAM_BF16_OMEGA_RTOL
+                              * want[k].abs())).max())
+                    for k in ("omegas", "omegas_delta"))
+        bound = (f"omegas and omegas_delta bound {STREAM_BF16_OMEGA_TOL:g} + "
+                 f"{STREAM_BF16_OMEGA_RTOL:g} * |direct| (bf16 tail), largest "
+                 f"share of it {share:.3f}")
+        ok = share <= 1.0
+    else:
+        worst = max(errs.values())
+        bound = f"every key within {SHARDED_FP32_TOL:g} (fp32 tail)"
+        ok = worst <= SHARDED_FP32_TOL
+    print(f"{what}: max|sharded - direct| " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + f"; {bound}")
+    check(ok, f"{what}: outside the bound ({bound}): {errs}")
+    return errs
+
+
+def check_halo(what, got, want):
+    """The halo path against the unsharded encoder, within HALO_TOL."""
+    check(set(got) == set(want), f"{what}: keys {sorted(got)}")
+    errs = {k: max_abs(got[k], want[k]) for k in sorted(want)}
+    print(f"{what}: max|halo - unsharded| " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bound: omegas {HALO_TOL['omegas']:g}, every key "
+        f"{HALO_TOL['all']:g})")
+    for k, v in errs.items():
+        tol = HALO_TOL["omegas" if k.startswith("omegas") else "all"]
+        check(v <= tol, f"{what}: {k} differs by {v} > {tol}")
+    return errs
+
+
+def mesh_checks(torch, case, mesh, mesh_2d, K, smpl_cuda):
+    """Phase 14's checks on one rank of a mesh; every rank runs them, rank
+    0 holds the results to its single-device counterparts. Returns rank 0's
+    errors and every rank's launch counts."""
+    import torch.distributed as dist
+
+    from human_dynamics_tpu_torch.infer import (
+        PredictionService,
+        WindowSchedule,
+    )
+    from human_dynamics_tpu_torch.parallel import halo
+    from human_dynamics_tpu_torch.parallel.mesh import broadcast
+
+    lead, world, dev = mesh.rank == 0, mesh.size, mesh.device
+    bench, fp32 = case.bench, case.fp32
+    tag = f"mesh world {world} ({dist.get_backend()})"
+    res = {"rank": mesh.rank, "world": world}
+
+    def encoded(frames):
+        """Rank 0's features of `frames`, on every rank."""
+        phi = (bench.encode_frames(frames) if lead else torch.empty(
+            (len(frames), case.model.feature_dim), device=dev))
+        return broadcast(phi, mesh)
+
+    # Windowed on features: the fp32 and the bf16 window tails.
+    phi = encoded(case.frames)
+    for name, pred in (("fp32", fp32), ("bench config", bench)):
+        got = pred.predict_all_images_sharded(None, mesh, phi=phi,
+                                              as_numpy=False)
+        if lead:
+            want = pred.predict_all_images(None, phi=phi, as_numpy=False)
+            res[f"windowed_phi_{name}"] = check_sharded(
+                torch, f"{tag}: predict_all_images_sharded, {name}, "
+                f"{N_FRAMES}-frame phi", pred, got, want)
+
+    # Windowed on uint8 frames: rank 0 encodes; K1 on every rank.
+    sched = WindowSchedule(N_FRAMES, bench.batch_size, bench.seq_length,
+                           bench.model.fov)
+    per_rank = -(-sched.count // world)
+    steps = -(-per_rank // bench.groups_per_step)
+    heads = 1 + len(bench.delta_ts)
+    chunks = -(-N_FRAMES // bench.encode_chunk) if lead else 0
+    torch.cuda.synchronize()
+    reset_all(K, smpl_cuda)
+    with Recorder(smpl_cuda, ["blend_skin"]) as rec:
+        sharded_u8 = bench.predict_all_images_sharded(case.frames, mesh,
+                                                      as_numpy=False)
+        torch.cuda.synchronize()
+    counts, _ = read_counts(K, smpl_cuda)
+    want_counts = {smpl_cuda.KERNEL_NAME: steps, K.CONV: 52 * chunks,
+                   K.PREACT: chunks, K.BLOCK: 0}
+    check(counts == want_counts, f"{tag} rank {mesh.rank}: launches "
+          f"{counts}, want {want_counts}")
+    k1_n = [args[0].shape[0] for _, args, _ in rec.calls]
+    check(k1_n == [per_rank * bench.batch_size * sched.good_frames * heads]
+          * steps, f"{tag}: K1 at N = {k1_n}")
+    k1_err = 0.0
+    for _, args, _ in rec.calls:
+        k1_err = max(k1_err, max(
+            max_abs(a, b) for a, b in zip(smpl_cuda.blend_skin(*args),
+                                          smpl_cuda.blend_skin_reference(
+                                              *args))))
+    check(k1_err <= K1_PLANES_TOL, f"{tag}: K1 planes {k1_err}")
+    res.update(launches=counts, k1_n=k1_n, k1_err=k1_err)
+    if lead:
+        print(f"{tag}: one {N_FRAMES}-frame uint8 clip, "
+              f"{sched.count} window groups -> {per_rank} per rank; "
+              f"launches on rank 0 {counts}; K1 at N = {k1_n}, planes "
+              f"within {k1_err:.3e} of its plain version (tol "
+              f"{K1_PLANES_TOL:g})")
+        want_u8 = bench.predict_all_images(case.frames, as_numpy=False)
+        res["windowed_u8"] = check_sharded(
+            torch, f"{tag}: predict_all_images_sharded, bench config, "
+            f"{N_FRAMES} uint8 frames", bench, sharded_u8, want_u8)
+
+    # The halo path on a long clip, and on a (1, world) mesh.
+    phi_halo = encoded(case.halo_frames)
+    got = halo.predict_clip_sharded(case.model, case.smpl, phi_halo, mesh,
+                                   axis_name="data")
+    if lead:
+        res["halo"] = check_halo(
+            f"{tag}: predict_clip_sharded, {N_HALO}-frame phi",
+            got, unsharded_clip(torch, case.model, case.smpl, phi_halo))
+    b2, n2 = CLIPS_2D
+    phis = phi_halo[:b2 * n2].reshape(b2, n2, -1)
+    got = halo.predict_clips_sharded_2d(case.model, case.smpl, phis, mesh_2d)
+    if lead:
+        res["clips_2d"] = max(
+            max(check_halo(f"{tag}: predict_clips_sharded_2d on a "
+                           f"{mesh_2d.shape} mesh, clip {i} of {b2}x{n2}",
+                           {k: v[i] for k, v in got.items()},
+                           unsharded_clip(torch, case.model, case.smpl,
+                                          phis[i])).values())
+            for i in range(b2))
+
+    # The service, both modes: rank 0 serves, the others follow.
+    direct_halo = halo.predict_clip_sharded(case.model, case.smpl, phi, mesh,
+                                           axis_name="data")
+    for mode, want in (("windowed", sharded_u8), ("halo", direct_halo)):
+        if not lead:
+            stats = PredictionService.follow(bench, mesh)
+            check(stats == {"served": 1, "failed": 0},
+                  f"{tag} rank {mesh.rank}: follower {mode} {stats}")
+            continue
+        with PredictionService(bench, mesh=mesh, mesh_mode=mode) as service:
+            got = service.submit(case.frames).result(timeout=600)
+        check(service.stats()["completed"] == 1, f"{tag}: service {mode} "
+              f"{service.stats()}")
+        check(set(got) == set(want) and all(
+            torch.equal(got[k], want[k]) for k in want),
+            f"{tag}: the {mode} service differs from the direct sharded call")
+        print(f"{tag}: PredictionService(mesh, mesh_mode={mode!r}) on one "
+              f"{N_FRAMES}-frame uint8 clip equal to the direct sharded "
+              f"call, {world - 1} follower(s)")
+    return res
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def walls_in_turns(torch, fns, reps=N_MESH_TURNS):
+    """{name: [seconds]} of each fn, synchronised, in turns a, b, b, a."""
+    names = list(fns)
+    walls = {n: [] for n in names}
+    for name in names + names[::-1]:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    return walls
+
+
+def mesh_timings(torch, np, case, mesh, card):
+    """World 1: sharded against direct, the halo clip against the unsharded
+    forward, the service with a mesh against direct calls; smoke timings
+    (medians of 2 x N_MESH_TURNS calls in turns), not a benchmark."""
+    from human_dynamics_tpu_torch.infer import PredictionService
+    from human_dynamics_tpu_torch.parallel import halo
+
+    bench, frames = case.bench, case.frames
+    phi_halo = bench.encode_frames(case.halo_frames)
+
+    def service_clips():
+        with PredictionService(bench, mesh=mesh) as service:
+            futs = [service.submit(frames) for _ in range(N_MESH_TURNS)]
+            for f in futs:
+                f.result(timeout=600)
+
+    def direct_clips():
+        for _ in range(N_MESH_TURNS):
+            bench.predict_all_images(frames, as_numpy=False)
+
+    runs = {
+        f"windowed, bench config, {N_FRAMES} uint8 frames": {
+            "direct": lambda: bench.predict_all_images(frames,
+                                                       as_numpy=False),
+            "sharded": lambda: bench.predict_all_images_sharded(
+                frames, mesh, as_numpy=False)},
+        f"halo, {N_HALO}-frame phi, fp32": {
+            "unsharded": lambda: unsharded_clip(torch, case.model, case.smpl,
+                                                phi_halo),
+            "sharded": lambda: halo.predict_clip_sharded(
+                case.model, case.smpl, phi_halo, mesh, axis_name="data")},
+    }
+    out = {}
+    for what, fns in runs.items():
+        walls = walls_in_turns(torch, fns)
+        med = {n: float(np.median(w)) * 1e3 for n, w in walls.items()}
+        out[what] = med
+        print(f"smoke timing (not a benchmark) [{card}]: mesh world 1, "
+              f"{what}: " + ", ".join(
+                  f"{n} {m:.2f} ms (all {[round(x * 1e3, 2) for x in w]})"
+                  for (n, w), m in zip(walls.items(), med.values())))
+    walls = walls_in_turns(torch, {"direct": direct_clips,
+                                   "service": service_clips}, reps=1)
+    n = N_MESH_TURNS * N_FRAMES
+    out["service"] = {k: n / float(np.median(w)) for k, w in walls.items()}
+    print(f"smoke timing (not a benchmark) [{card}]: mesh world 1, "
+          f"{N_MESH_TURNS} clips of {N_FRAMES} frames through "
+          f"PredictionService(mesh) " + ", ".join(
+              f"{s * 1e3:.2f} ms" for s in walls["service"])
+          + " against direct calls " + ", ".join(
+              f"{s * 1e3:.2f} ms" for s in walls["direct"])
+          + f"; frames/s {out['service']['service']:.1f} against "
+          f"{out['service']['direct']:.1f} (medians)")
+    return out
+
+
+def mesh_rank(torch, dev, rank, world, url, backend, out_path):
+    """One rank of a phase-14 group: join it, run mesh_checks, write the
+    results to out_path."""
+    import torch.distributed as dist
+
+    from human_dynamics_tpu_torch import parallel
+    from human_dynamics_tpu_torch.ops import resnet_int8_cuda as K
+    from human_dynamics_tpu_torch.ops import smpl_cuda
+
+    parallel.initialize_multihost(
+        {"HD_TPU_COORDINATOR": url, "HD_TPU_NUM_PROCESSES": str(world),
+         "HD_TPU_PROCESS_ID": str(rank)}, device=dev, backend=backend)
+    try:
+        mesh = parallel.make_mesh(world, "data", device=dev)
+        mesh_2d = parallel.make_mesh_2d(1, world, device=dev)
+        res = mesh_checks(torch, mesh_case(torch, mesh.device), mesh,
+                          mesh_2d, K, smpl_cuda)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def mesh_worker(argv):
+    """Entry of a phase-14 rank: chip_smoke.py --mesh-worker RANK WORLD URL
+    OUT BACKEND."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, HERE)
+    rank, world, url, out_path, backend = argv
+    rank, world = int(rank), int(world)
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    mesh_rank(torch, dev, rank, world, url, backend, out_path)
+
+
+def run_mesh_group(world, backend):
+    """Start `world` ranks of this script as subprocesses on `backend`; a
+    rank that fails or outlives MESH_WORKER_TIMEOUT fails the phase (every
+    rank is killed). Returns each rank's results and the group's wall."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        url = "file://" + os.path.join(tmp, "rendezvous")
+        env = dict(os.environ)
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             str(r), str(world), url, os.path.join(tmp, f"rank{r}.json"),
+             backend],
+            stdout=logs[r], stderr=subprocess.STDOUT, cwd=HERE, env=env)
+            for r in range(world)]
+        deadline = time.monotonic() + MESH_WORKER_TIMEOUT
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        print(f"--- mesh world {world} ({backend}), rank 0's output ---\n"
+              + texts[0].rstrip())
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        for r in failed:
+            print(f"--- rank {r} exited with {procs[r].returncode} ---\n"
+                  + texts[r][-6000:].rstrip())
+        check(not failed, f"mesh world {world} ({backend}): ranks {failed} "
+              "failed or timed out")
+        results = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    return results, time.perf_counter() - t0
+
+
+def phase_mesh(torch, np, dev, K, smpl_cuda, card):
+    """Phase 14: multi-GPU inference at full width. World 1 on NCCL in this
+    process (checks, K1's launches, timings); then two ranks sharing the
+    card over gloo, and, where two or more cards are visible, NCCL over all
+    of them, as subprocesses."""
+    import torch.distributed as dist
+
+    from human_dynamics_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh(1, "data", device=dev)
+        mesh_2d = parallel.make_mesh_2d(1, 1, device=dev)
+        case = mesh_case(torch, dev)
+        res = mesh_checks(torch, case, mesh, mesh_2d, K, smpl_cuda)
+        res["timings"] = mesh_timings(torch, np, case, mesh, card)
+    finally:
+        dist.destroy_process_group()
+    del case
+    torch.cuda.empty_cache()
+    worlds = [(1, "nccl")]
+    groups = [(2, "gloo")]
+    if torch.cuda.device_count() >= 2:
+        groups.append((torch.cuda.device_count(), "nccl"))
+    for world, backend in groups:
+        ranks, wall = run_mesh_group(world, backend)
+        worlds.append((world, backend))
+        print(f"mesh world {world} ({backend}): every rank passed in "
+              f"{wall:.1f} s; K1 launches by rank "
+              f"{[r['launches'][smpl_cuda.KERNEL_NAME] for r in ranks]} at "
+              f"N = {[r['k1_n'] for r in ranks]}")
+        res[f"world{world}_{backend}"] = ranks
+    print(f"mesh: worlds run {worlds}; phase 14 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main():
     import numpy as np
     import torch
@@ -2109,6 +2552,9 @@ def main():
     # Phase 13: image-mode training.
     image = phase_train_image(torch, np, dev, smpl, K, smpl_cuda, card)
 
+    # Phase 14: multi-GPU inference.
+    mesh = phase_mesh(torch, np, dev, K, smpl_cuda, card)
+
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [
         dict(name=smpl_cuda.KERNEL_NAME, source=csrc + "smpl_blend_skin.cu",
@@ -2116,7 +2562,9 @@ def main():
              launches=launches, train_launches=train["train_launches"],
              train_steps=train["train_steps"],
              image_train_launches=image["image_train_launches"],
-             image_train_steps=image["image_train_steps"], **k1),
+             image_train_steps=image["image_train_steps"],
+             sharded_launches=mesh["launches"][smpl_cuda.KERNEL_NAME],
+             sharded_n=mesh["k1_n"][0], **k1),
         dict(name=K.BLOCK, source=csrc + "resnet_int8.cu",
              replaces="human_dynamics_tpu/ops/resnet_int8_pallas.py:151",
              **int8["k2"]),
@@ -2131,10 +2579,11 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1 also runs on the training paths: its launches over the phase-12
     # steps and the phase-13 timed steps, and its times at a training
-    # step's N.
+    # step's N; and on the sharded windowed path (phase 14, world 1, one
+    # clip) at the rank's N.
     train_keys = ("train_launches", "train_steps", "train_n", "train_ms",
                   "train_plain_ms", "train_bound_ms", "image_train_launches",
-                  "image_train_steps")
+                  "image_train_steps", "sharded_launches", "sharded_n")
     print(json.dumps({"kernels": [
         {k: dict(kern, route="cuda")[k] for k in keys
          + tuple(k for k in train_keys if k in kern)} for kern in kernels
@@ -2146,4 +2595,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2:])
+    else:
+        main()

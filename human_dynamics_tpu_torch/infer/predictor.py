@@ -20,6 +20,8 @@ Counterpart of ``human_dynamics_tpu/infer/predictor.py``, inference only:
 - The windows are stitched back to (N, ...) per-frame outputs with keys
   cams/joints/kps/poses/shapes/verts/omegas, plus '*_delta' stacked
   (N, D, ...) over the sorted delta_t values.
+- ``predict_all_images_sharded`` splits the window groups over the ranks
+  of a ``parallel.Mesh`` and gathers the results to every rank.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from human_dynamics_tpu_torch.models.resnet_int8 import (
     run_int8_static,
 )
 from human_dynamics_tpu_torch.ops.smpl_cuda import prepare_fused_constants
+from human_dynamics_tpu_torch.parallel.mesh import assemble, broadcast
 from human_dynamics_tpu_torch.utils.precision import full_fp32, to_bf16
 
 _TWO_OVER_255 = float(np.float32(2.0 / 255.0))
@@ -351,25 +354,79 @@ class HmmrPredictor:
             else:
                 phi = self.encode_frames(frames)
         phi = torch.as_tensor(phi, dtype=torch.float32, device=self.device)
-        n = len(phi)
+        out, _ = self._predict_block(phi, 1, 0)
+        out = {k: v[:len(phi)] for k, v in out.items()}
+        if as_numpy:
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+        return out
 
+    def _predict_block(self, phi: torch.Tensor, parts: int, idx: int):
+        """Block ``idx`` of ``parts`` contiguous blocks of phi's window
+        groups (the group count rounded up to a multiple of ``parts``, the
+        extra groups on zero features), in steps of ``groups_per_step``.
+        Returns the block's outputs with its windows' good frames
+        flattened, (rows, ...) each, and the rows of all blocks."""
         sched = WindowSchedule(
-            num_frames=n,
+            num_frames=len(phi),
             batch_size=self.batch_size,
             seq_length=self.seq_length,
             fov=self.model.fov,
         )
-        phi_padded = F.pad(phi, (0, 0, sched.margin, sched.num_fill))
-        ids = torch.arange(sched.count, device=self.device)
+        count = -(-sched.count // parts) * parts
+        frames_per_group = self.batch_size * sched.good_frames
+        extra = (count - sched.count) * frames_per_group
+        phi_padded = F.pad(phi, (0, 0, sched.margin, sched.num_fill + extra))
+        per_block = count // parts
+        ids = torch.arange(idx * per_block, (idx + 1) * per_block,
+                           device=self.device)
         steps = [
             self._run_groups(phi_padded, ids[i:i + self.groups_per_step],
                              sched.margin, sched.good_frames)
-            for i in range(0, sched.count, self.groups_per_step)
+            for i in range(0, per_block, self.groups_per_step)
         ]
-        out = {
-            k: torch.cat([s[k] for s in steps]).flatten(0, 1)[:n]
-            for k in steps[0]
-        }
+        out = {k: torch.cat([s[k] for s in steps]).flatten(0, 1)
+               for k in steps[0]}
+        return out, count * frames_per_group
+
+    # ------------------------------------------------------------------
+    # Multi-GPU data-parallel windowed inference
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def predict_all_images_sharded(
+        self, frames, mesh, phi=None, as_numpy: bool = True
+    ) -> Dict[str, np.ndarray]:
+        """predict_all_images with the window groups split over a mesh.
+
+        Every rank calls it with the same arguments. The group count is
+        rounded up to the axis size; rank r runs the r-th contiguous block
+        of groups on the whole (replicated) feature buffer, and the blocks
+        are gathered to every rank and stitched as on one device, so the
+        results are predict_all_images's.
+
+        Args:
+            frames/phi: as in predict_all_images. Image input is encoded by
+                the axis's first rank (``encode_frames``, the configured
+                encoder) and broadcast as phi, so every rank sees the same
+                features, dynamic int8 scales included.
+            mesh: a ``parallel.Mesh``; the groups split over its first axis.
+        """
+        axis = mesh.axis_names[0]
+        parts, idx = mesh.shape[axis], mesh.index(axis)
+        if phi is None:
+            if getattr(frames, "ndim", None) == 2:
+                phi = frames
+            else:
+                phi = (self.encode_frames(frames) if idx == 0 else
+                       torch.empty((len(frames), self.model.feature_dim),
+                                   device=self.device))
+                broadcast(phi, mesh, axis)
+        phi = torch.as_tensor(phi, dtype=torch.float32, device=self.device)
+        local, total = self._predict_block(phi, parts, idx)
+        rows = total // parts
+        out = assemble(local, (total,), (slice(idx * rows, (idx + 1) * rows),),
+                       mesh, axis)
+        out = {k: v[:len(phi)] for k, v in out.items()}
         if as_numpy:
             out = {k: v.cpu().numpy() for k, v in out.items()}
         return out

@@ -1,4 +1,4 @@
-"""Concurrent prediction service: pipelined single-GPU serving.
+"""Concurrent prediction service: pipelined serving on one GPU or a mesh.
 
 Counterpart of ``human_dynamics_tpu/infer/service.py``. PyTorch queues
 CUDA work asynchronously, so a single dispatcher thread that issues
@@ -21,14 +21,21 @@ Design notes:
   produced it. ``as_numpy=True`` fetches on the dispatcher thread.
 - An error in a request resolves only that request's future; the service
   keeps running. ``close()`` drains the queue and joins the thread.
-- Multi-GPU serving (the JAX service's ``mesh`` and ``mesh_mode``) is not
-  ported yet: a service given a mesh raises.
+- With a ``parallel.Mesh`` (one process per GPU), offline clips run
+  sharded over every rank. Rank 0 owns the service; every other rank runs
+  ``PredictionService.follow(predictor, mesh)``. For each clip the
+  dispatcher encodes image input on rank 0, broadcasts a header (the
+  path, N, C) and the (N, C) features, and every rank makes the same
+  sharded call; ``close()`` broadcasts a stop. The dispatcher thread is
+  the only thread of rank 0 that issues collectives. A follower waits for
+  the next header at most the process group's timeout.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import traceback
 from concurrent.futures import Future
 from typing import Any, Dict, Optional
 
@@ -36,6 +43,12 @@ import numpy as np
 import torch
 
 from human_dynamics_tpu_torch.infer.streaming import StreamingPredictor
+from human_dynamics_tpu_torch.parallel.halo import predict_clip_sharded
+from human_dynamics_tpu_torch.parallel.mesh import broadcast
+
+# The header's first entry: what every rank runs next.
+_STOP, _WINDOWED, _HALO = 0, 1, 2
+_OPS = {"windowed": _WINDOWED, "halo": _HALO}
 
 
 class PredictionService:
@@ -48,11 +61,17 @@ class PredictionService:
             tensors on the device (adds a device->host fetch per request).
         max_queue: backpressure bound: ``submit`` blocks once this many
             requests are waiting (0 = unbounded).
-        mesh: must be None. Serving over several GPUs is not ported
-            (ROADMAP.md, Queue 1 item 5, multi-GPU); any other value
-            raises NotImplementedError.
-        mesh_mode: ``"windowed"`` or ``"halo"``, checked as in the JAX
-            service; it takes effect only with a mesh.
+        mesh: optional ``parallel.Mesh``, on rank 0 (the other ranks run
+            ``follow``). Offline ``submit`` clips then run sharded over its
+            first axis; live streams (``open_stream``) stay on rank 0's
+            device: an emission is too small to pay for collectives, and
+            its state stays where the next one runs.
+        mesh_mode: which sharded clip path ``submit`` uses:
+            ``"windowed"``: ``predict_all_images_sharded``, window groups
+            split over the ranks, results equal to ``predict_all_images``;
+            ``"halo"``: ``parallel.halo.predict_clip_sharded``, the clip's
+            frames split over the ranks, the exact full-clip forward
+            (fp32, no window stitching) under that function's keys.
     """
 
     def __init__(
@@ -67,11 +86,10 @@ class PredictionService:
             raise ValueError(
                 f"mesh_mode must be 'windowed' or 'halo', got {mesh_mode!r}"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "PredictionService(mesh=...): multi-GPU serving is not "
-                "ported yet (ROADMAP.md, Queue 1 item 5, multi-GPU); "
-                "serve on one device with mesh=None"
+        if mesh is not None and mesh.rank != 0:
+            raise ValueError(
+                f"PredictionService(mesh=...) runs on rank 0; rank "
+                f"{mesh.rank} serves with PredictionService.follow"
             )
         self.predictor = predictor
         self.as_numpy = as_numpy
@@ -105,10 +123,64 @@ class PredictionService:
         Raises RuntimeError after ``close()``.
         """
         n = int(len(frames) if frames is not None else len(phi))
-        thunk = lambda: self.predictor.predict_all_images(
-            frames, phi=phi, as_numpy=self.as_numpy
-        )
+        if self.mesh is not None:
+            thunk = lambda: self._predict_sharded(frames, phi)
+        else:
+            thunk = lambda: self.predictor.predict_all_images(
+                frames, phi=phi, as_numpy=self.as_numpy
+            )
         return self._submit_thunk(thunk, num_frames=n)
+
+    def _predict_sharded(self, frames, phi) -> Dict[str, Any]:
+        """One clip over the mesh, on the dispatcher thread: rank 0 encodes
+        image input, checks the features, and hands the header and the
+        features to the followers before the sharded call."""
+        p = self.predictor
+        if phi is None:
+            phi = frames if getattr(frames, "ndim", 0) == 2 else (
+                p.encode_frames(frames))
+        phi = torch.as_tensor(phi, dtype=torch.float32,
+                              device=self.mesh.device).contiguous()
+        c = p.model.feature_dim
+        if phi.dim() != 2 or phi.shape[0] < 1 or phi.shape[1] != c:
+            raise ValueError(
+                f"features of shape {tuple(phi.shape)}; the model takes "
+                f"(N >= 1, {c})"
+            )
+        op = _OPS[self.mesh_mode]
+        broadcast(torch.tensor([op, *phi.shape], device=self.mesh.device),
+                  self.mesh)
+        broadcast(phi, self.mesh)
+        return _sharded_call(p, self.mesh, op, phi, self.as_numpy)
+
+    @staticmethod
+    def follow(predictor, mesh) -> Dict[str, int]:
+        """Serve rank 0's sharded calls on this rank until its service
+        closes.
+
+        Every rank but 0 runs this, with a predictor built as rank 0's.
+        Returns {"served": calls made, "failed": calls that raised} (a
+        failed call is rank 0's failed request too).
+        """
+        if mesh.rank == 0:
+            raise ValueError("rank 0 owns the PredictionService")
+        stats = {"served": 0, "failed": 0}
+        with torch.inference_mode():
+            while True:
+                header = broadcast(
+                    torch.zeros(3, dtype=torch.int64, device=mesh.device),
+                    mesh)
+                op, n, c = header.tolist()
+                if op == _STOP:
+                    return stats
+                phi = broadcast(torch.empty((n, c), device=mesh.device),
+                                mesh)
+                stats["served"] += 1
+                try:
+                    _sharded_call(predictor, mesh, op, phi, as_numpy=False)
+                except Exception:  # rank 0's future fails too; keep serving
+                    traceback.print_exc()
+                    stats["failed"] += 1
 
     def _submit_thunk(self, thunk, num_frames: int = 0) -> "Future":
         """Enqueue arbitrary work on the dispatcher thread (the single
@@ -184,11 +256,17 @@ class PredictionService:
     def _dispatch_loop(self) -> None:
         # inference_mode is per thread: without it here, work built on this
         # thread outside the predictor's own decorated methods would record
-        # autograd state.
+        # autograd state. So is the current CUDA device.
+        if self.mesh is not None and self.mesh.device.type == "cuda":
+            torch.cuda.set_device(self.mesh.device)
         with torch.inference_mode():
             while True:
                 item = self._queue.get()
                 if item is None:
+                    if self.mesh is not None:
+                        broadcast(torch.zeros(3, dtype=torch.int64,
+                                              device=self.mesh.device),
+                                  self.mesh)
                     return
                 fut, thunk, num_frames = item
                 if not fut.set_running_or_notify_cancel():
@@ -204,6 +282,18 @@ class PredictionService:
                 with self._lock:
                     self._stats["completed"] += 1
                     self._stats["frames"] += num_frames
+
+
+def _sharded_call(predictor, mesh, op, phi, as_numpy: bool):
+    """The sharded call that the header's ``op`` names, on every rank."""
+    if op == _WINDOWED:
+        return predictor.predict_all_images_sharded(
+            None, mesh, phi=phi, as_numpy=as_numpy)
+    out = predict_clip_sharded(predictor.model, predictor.smpl, phi, mesh,
+                               axis_name=mesh.axis_names[0])
+    if as_numpy:
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+    return out
 
 
 class StreamingSession:

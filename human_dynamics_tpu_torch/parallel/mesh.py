@@ -1,0 +1,316 @@
+"""Process meshes and sharding helpers on torch.distributed.
+
+Counterpart of ``human_dynamics_tpu/parallel/mesh.py``. One process per
+device: a ``Mesh`` lays the process group's ranks out on named axes, row
+major, so rank = d * time_size + t on a (data, time) mesh, ``time``
+innermost as in the JAX mesh. Every rank calls the same sharded functions
+with the same arguments, as ``shard_map`` does, and results come back
+whole on every rank.
+
+Every collective here is an ``all_reduce`` (SUM) or a ``broadcast``: gloo
+runs those two on CUDA tensors too, so several ranks can share one GPU
+over gloo, which NCCL refuses. A gather is an ``all_reduce`` of a zeroed
+buffer into which each rank writes its own block (x + 0 is exact).
+
+- ``make_mesh`` / ``make_mesh_2d``: the mesh over the whole process group.
+- ``shard_batch`` / ``shard_batch_2d``: this rank's contiguous block of a
+  batch, with the JAX functions' divisibility errors.
+- ``replicate``: rank 0's tensors on every rank.
+- ``make_mesh_tp`` / ``shard_params_tp``: wait for training (ROADMAP.md,
+  Queue 1 item 5b).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+_TP_ITEM = (
+    "tensor-parallel parameter sharding is not ported yet (ROADMAP.md, "
+    "Queue 1 item 5b, step 5: the TP hook)"
+)
+
+
+def _dist():
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "a Mesh needs an initialised process group: call "
+            "parallel.initialize (or torch.distributed.init_process_group) "
+            "in every process first"
+        )
+    return dist
+
+
+def _mesh_device(device, rank: int) -> torch.device:
+    """``device``, or this rank's CUDA device when it is None (raises
+    without one: the CPU runs only when asked for)."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the mesh "
+            "on the CPU"
+        )
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+class Mesh:
+    """This process's place in a grid of ranks with named axes.
+
+    Attributes:
+        axis_names: the axes, outermost first.
+        shape: {axis: size}.
+        coords: {axis: this rank's index along it}.
+        device: where this rank computes (its collectives' tensors live
+            there).
+        size: the number of ranks (the process group's world size).
+    """
+
+    def __init__(self, sizes: Sequence[int], axis_names: Sequence[str],
+                 device=None):
+        dist = _dist()
+        sizes, axis_names = tuple(int(s) for s in sizes), tuple(axis_names)
+        if len(sizes) != len(axis_names) or len(set(axis_names)) != len(sizes):
+            raise ValueError(f"axes {axis_names} do not fit sizes {sizes}")
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if int(np.prod(sizes)) != world:
+            raise ValueError(
+                f"a {'x'.join(map(str, sizes))} mesh needs {int(np.prod(sizes))} "
+                f"processes, the process group has {world}"
+            )
+        self.device = _mesh_device(device, rank)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        elif dist.get_backend() == "nccl":
+            raise ValueError("the NCCL backend cannot run a mesh on the CPU")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, sizes))
+        self.size = world
+        self.rank = rank
+        grid = np.arange(world).reshape(sizes)
+        self.coords = {
+            a: int(i) for a, i in
+            zip(axis_names, np.unravel_index(rank, sizes))
+        }
+        # One group per row of each axis, made in the same order on every
+        # rank (new_group is collective); a row that spans every rank is
+        # the world group.
+        self._groups = {}
+        for i, axis in enumerate(axis_names):
+            for row in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]):
+                ranks = row.tolist()
+                group = (dist.group.WORLD if len(ranks) == world
+                         else dist.new_group(ranks))
+                if rank in ranks:
+                    self._groups[axis] = group
+
+    def index(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        return self.coords[axis]
+
+    def group(self, axis: Optional[str] = None):
+        """The process group of this rank's row along ``axis`` (None: every
+        rank)."""
+        if axis is None:
+            return _dist().group.WORLD
+        return self._groups[axis]
+
+
+def make_mesh(
+    num_devices: Optional[int] = None,
+    axis_name: str = "data",
+    device=None,
+) -> Mesh:
+    """1-D mesh over every process of the group; ``num_devices``, when
+    given, must be the group's size (one process per device)."""
+    world = _dist().get_world_size()
+    if num_devices is not None and num_devices != world:
+        raise ValueError(
+            f"make_mesh({num_devices}): the process group has {world} "
+            "processes, one per device"
+        )
+    return Mesh((world,), (axis_name,), device=device)
+
+
+def make_mesh_2d(
+    data_size: int,
+    time_size: int,
+    axis_names: Sequence[str] = ("data", "time"),
+    device=None,
+) -> Mesh:
+    """(data_size x time_size) mesh, ``time`` innermost: rank
+    d * time_size + t, so a halo exchange stays within neighbouring
+    ranks."""
+    return Mesh((data_size, time_size), axis_names, device=device)
+
+
+def make_mesh_tp(*args, **kwargs):
+    raise NotImplementedError(_TP_ITEM)
+
+
+def shard_params_tp(*args, **kwargs):
+    raise NotImplementedError(_TP_ITEM)
+
+
+# ---------------------------------------------------------------------------
+# Collectives (all_reduce and broadcast only; see the module docstring)
+# ---------------------------------------------------------------------------
+
+
+# gloo runs a collective on CUDA tensors through a host copy that it writes
+# back with a torch op, in place: an inference tensor (made under
+# torch.inference_mode) takes that write only inside inference mode.
+
+
+def all_sum(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None
+            ) -> torch.Tensor:
+    """Sum ``t`` in place over the ranks of this rank's ``axis`` row."""
+    with torch.inference_mode(t.is_inference()):
+        _dist().all_reduce(t, group=mesh.group(axis))
+    return t
+
+
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None
+              ) -> torch.Tensor:
+    """``t`` in place from the first rank of this rank's ``axis`` row
+    (None: from rank 0)."""
+    dist = _dist()
+    group = mesh.group(axis)
+    with torch.inference_mode(t.is_inference()):
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return t
+
+
+def assemble(
+    parts: Mapping,
+    lead: Tuple[int, ...],
+    index: Tuple[slice, ...],
+    mesh: Mesh,
+    axis: Optional[str] = None,
+) -> Dict[str, torch.Tensor]:
+    """Gather each rank's block of several arrays in one ``all_reduce``.
+
+    ``parts`` maps names to this rank's block, of shape (*local_lead,
+    *rest); ``index`` places the block's leading dims in the whole arrays'
+    ``lead`` dims. Every part is flattened behind its leading dims into one
+    zeroed (*lead, W) buffer of the parts' common dtype, summed over this
+    rank's ``axis`` row, and cut back into (*lead, *rest) arrays.
+    """
+    names = list(parts)
+    first = parts[names[0]]
+    nlead = len(lead)
+    local_lead = tuple(first.shape[:nlead])
+    dtypes = {parts[k].dtype for k in names}
+    if len(dtypes) != 1:
+        raise ValueError(f"assemble: parts of several dtypes {dtypes}")
+    flat = [parts[k].reshape(local_lead + (-1,)) for k in names]
+    widths = [f.shape[-1] for f in flat]
+    buf = torch.zeros(tuple(lead) + (sum(widths),), dtype=first.dtype,
+                      device=first.device)
+    buf[index] = torch.cat(flat, dim=-1)
+    all_sum(buf, mesh, axis)
+    out = {}
+    for k, piece in zip(names, torch.split(buf, widths, dim=-1)):
+        out[k] = piece.reshape(tuple(lead) + tuple(parts[k].shape[nlead:]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sharding
+# ---------------------------------------------------------------------------
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    return tree
+
+
+def _block(x, mesh: Mesh, axis: str, dim: int, what: str) -> torch.Tensor:
+    """This rank's contiguous block of ``x`` along ``dim``, split over
+    ``axis``."""
+    parts, size = mesh.shape[axis], x.shape[dim]
+    if size % parts:
+        raise ValueError(
+            f"{what}: {size} along dim {dim} not divisible by mesh axis "
+            f"{axis!r} of size {parts}"
+        )
+    k = size // parts
+    return x.narrow(dim, mesh.index(axis) * k, k)
+
+
+def _to_device(x, mesh: Mesh) -> torch.Tensor:
+    return torch.as_tensor(x).to(mesh.device)
+
+
+def shard_batch(batch, mesh: Mesh, axis_name: str = "data"):
+    """This rank's block of every array leaf along its leading (batch)
+    axis; scalars are kept whole. Leaves come back as tensors on the
+    mesh's device."""
+    def put(x):
+        x = _to_device(x, mesh)
+        if x.dim() == 0:
+            return x
+        return _block(x, mesh, axis_name, 0, "shard_batch").contiguous()
+
+    return _tree_map(put, batch)
+
+
+def shard_batch_2d(
+    batch,
+    mesh: Mesh,
+    data_axis: str = "data",
+    time_axis: str = "time",
+):
+    """This rank's block of a train Batch over (data x time).
+
+    Per-frame tensors (phis/kps/poses_gt/joints_gt: (B, T, ...)) split the
+    batch over ``data`` and time over ``time``; per-tube tensors ((B, ...))
+    over ``data`` only; the mocap real pool is kept whole. T must divide
+    the time-axis size.
+    """
+    time_sharded = {"phis", "kps", "poses_gt", "joints_gt"}
+    data_sharded = {"shapes_gt", "has_3d_joints", "has_3d_smpl"}
+
+    t_dev = mesh.shape[time_axis]
+    out = {}
+    for name, x in batch._asdict().items():
+        x = _to_device(x, mesh)
+        if name in time_sharded:
+            if x.shape[1] % t_dev != 0:
+                raise ValueError(
+                    f"{name}: T={x.shape[1]} not divisible by "
+                    f"time mesh axis {t_dev}"
+                )
+            x = _block(_block(x, mesh, data_axis, 0, name), mesh,
+                       time_axis, 1, name)
+        elif name in data_sharded:
+            x = _block(x, mesh, data_axis, 0, name)
+        out[name] = x.contiguous()
+    return type(batch)(**out)
+
+
+def replicate(tree, mesh: Mesh):
+    """Rank 0's tensors on every rank, by broadcast: every array leaf of a
+    state dict (or any tree ``shard_batch`` takes) comes back as a new
+    tensor on the mesh's device."""
+    def put(x):
+        return broadcast(
+            torch.as_tensor(x).detach().to(mesh.device, copy=True)
+            .contiguous(), mesh)
+
+    return _tree_map(put, tree)

@@ -162,10 +162,15 @@ def test_streaming_session_reset_reopens(pred):
 
 
 def test_service_mesh_not_ported(pred):
-    """mesh= raises (multi-GPU serving is not ported); a bad mesh_mode is
-    rejected first, as in the JAX service."""
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        PredictionService(pred, mesh=object())
+    """Multi-GPU serving is ported (tests/test_torch_sharded_inference.py
+    drives it over gloo ranks); what stays refused: a service on any rank
+    but 0 of its mesh (the others follow), and a bad mesh_mode, rejected
+    first, as in the JAX service."""
+    class Rank1:
+        rank = 1
+
+    with pytest.raises(ValueError, match="follow"):
+        PredictionService(pred, mesh=Rank1())
     with pytest.raises(ValueError, match="mesh_mode"):
         PredictionService(pred, mesh=object(), mesh_mode="hallo")
 
