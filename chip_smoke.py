@@ -122,6 +122,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    direct sharded calls. World 1 also times sharded against direct, the
    halo clip against the unsharded forward, and the service with a mesh
    against direct calls.
+15. Data-parallel training, at full width (feature_dim 2048, every head,
+   synthetic_smpl_model(6890, 25), global B=8, T=20): first world 1 on
+   NCCL in this process, phi fp32 fused, image (b) the whole trunk in bf16
+   and (a) freeze_phi fp32 on 160 frames of 224x224: Trainer(mesh=) against
+   the plain Trainer.step from the same state and batch for 3 steps with
+   deterministic algorithms (the first step's losses equal and gradients
+   within 1e-4 of each parameter's largest; the losses within 1e-6 and
+   every parameter, moving average and Adam moment within 1e-5 relative
+   L2; a second plain Trainer with the default algorithms beside it), K1
+   once per DP step, and both timed in turns; K1 at a rank's
+   N = 320 against its plain version. Then two ranks sharing the card over
+   gloo as subprocesses (--dp-worker): 2 phi steps and 1 image (b) step on
+   each rank's block, the ranks' states equal after each step (an
+   all_reduce of their differences from rank 0's), rank 0 against the
+   world-1 step on the global batch (bounds at DP_LOSS_RTOL and below),
+   K1 once per rank per step at N = 320 held to its plain version; then
+   python -m human_dynamics_tpu_torch.train.main as two processes sharing
+   the card (the HD_TPU_* variables, --backend gloo) for 3 steps on phi
+   records written here (2 shards per dataset), rank 0 writing the one
+   checkpoint, which a single-process Trainer restores.
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -213,6 +233,37 @@ SHARDED_FP32_TOL = 2e-5
 HALO_TOL = {"omegas": 1e-5, "all": 1e-5}
 N_MESH_TURNS = 3
 MESH_WORKER_TIMEOUT = 600
+# Phase 15: data-parallel training. World 1 on NCCL against the plain step,
+# with deterministic algorithms: every collective of one rank is the
+# identity, and the first step's losses come out equal bit for bit; its
+# gradients are held to the phi-mode target (1e-4 of each parameter's
+# largest element), the losses of 3 steps within 1e-6 relative and every
+# state tensor after them within 1e-5 relative L2. An H100 run put 3 of 61
+# first-step gradients one float32 ulp apart (1.49e-8, cuDNN's reduction
+# of the temporal encoder's conv biases: the ops and inputs are the
+# same), and Adam, which divides each element by its own gradient, turned
+# that into 1.1e-6 after 3 steps, where a second plain Trainer with the
+# default algorithms is 1.2e-6 to 2.5e-4 from the first. Two gloo ranks
+# sharing the card against the world-1 step on the
+# global batch: phi losses within 1e-5 and the first step's summed
+# gradients within TRAIN_GRAD_REL (phase 12's bound) per parameter; the bf16
+# image step by the bf16 rules of tests/test_torch_train_image_step.py,
+# over the whole step: a bf16 step is rounded at other places when each
+# rank holds half the frames (its BatchNorm statistics are combined from
+# the ranks' own), so the two-rank step is held no further from the
+# world-1 fp32 step than twice the world-1 bf16 step is: each model's
+# gradient as one vector (relative L2, plus 1e-3) and the largest relative
+# loss difference (plus 2e-3). A CPU rehearsal at 8 frames of 64x64 per
+# rank put the two-rank bf16 losses up to 3.3% from world 1's bf16 ones,
+# which were up to 9.6% from its fp32 ones.
+DP_STEPS = 3
+DP_TIMED = 3
+DP_RANK_STEPS = 2
+DP_MAIN_STEPS = 3
+DP_WORLD1_RTOL, DP_WORLD1_STATE_REL, DP_WORLD1_GRAD_REL = 1e-6, 1e-5, 1e-4
+DP_LOSS_RTOL = 1e-5
+DP_BF16_LOSS_RTOL = 2e-3
+DP_BF16_GRAD_FACTOR, DP_BF16_GRAD_FLOOR = 2.0, 1e-3
 PROFILE = "--profile" in sys.argv[1:]
 TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
 
@@ -1243,38 +1294,46 @@ def relu_inputs(torch, state):
             h.remove()
 
 
-def write_train_records(np, root, phi_dim):
-    """Phi training records (h36m and insta_variety, 3 tubes of 30 frames
-    each), mocap records, and the SMPL model as an npz; returns the npz's
-    path."""
+def _write_phi_shard(np, rng, path, phi_dim):
+    """One shard of 3 phi tubes of 30 frames each."""
     from human_dynamics_tpu_torch.data import (
         TFRecordWriter,
         convert_to_example_temporal,
-        encode_example,
     )
+
+    with TFRecordWriter(path) as w:
+        for _ in range(3):
+            n = 30
+            labels = rng.rand(n, 3, SMPL_KPS).astype(np.float32)
+            labels[:, 2] = rng.rand(n, SMPL_KPS) > 0.2
+            w.write(convert_to_example_temporal(
+                image_datas=None,
+                image_paths=[f"{i:06d}.jpg" for i in range(n)],
+                image_shapes=np.full((n, 2), IMG), labels=labels,
+                centers=rng.randint(0, IMG, (n, 2)),
+                gt3ds=rng.randn(n, 14, 3).astype(np.float32) * 0.3,
+                scale_factors=rng.rand(n, 2).astype(np.float32),
+                start_pts=rng.randint(0, 50, (n, 2)),
+                cams=rng.rand(n, 3).astype(np.float32),
+                poses=rng.randn(n, 72).astype(np.float32) * 0.2,
+                shape=rng.randn(10).astype(np.float32) * 0.3,
+                phis=rng.randn(n, phi_dim).astype(np.float32),
+            ))
+
+
+def write_train_records(np, root, phi_dim, shards=1):
+    """Phi training records (h36m and insta_variety, `shards` shards of 3
+    tubes of 30 frames each), mocap records, and the SMPL model as an npz;
+    returns the npz's path."""
+    from human_dynamics_tpu_torch.data import TFRecordWriter, encode_example
 
     rng = np.random.RandomState(12)
     for dataset in ("h36m", "insta_variety"):
         d = os.path.join(root, dataset, "train")
         os.makedirs(d)
-        with TFRecordWriter(os.path.join(d, "shard_0.tfrecord")) as w:
-            for _ in range(3):
-                n = 30
-                labels = rng.rand(n, 3, SMPL_KPS).astype(np.float32)
-                labels[:, 2] = rng.rand(n, SMPL_KPS) > 0.2
-                w.write(convert_to_example_temporal(
-                    image_datas=None,
-                    image_paths=[f"{i:06d}.jpg" for i in range(n)],
-                    image_shapes=np.full((n, 2), IMG), labels=labels,
-                    centers=rng.randint(0, IMG, (n, 2)),
-                    gt3ds=rng.randn(n, 14, 3).astype(np.float32) * 0.3,
-                    scale_factors=rng.rand(n, 2).astype(np.float32),
-                    start_pts=rng.randint(0, 50, (n, 2)),
-                    cams=rng.rand(n, 3).astype(np.float32),
-                    poses=rng.randn(n, 72).astype(np.float32) * 0.2,
-                    shape=rng.randn(10).astype(np.float32) * 0.3,
-                    phis=rng.randn(n, phi_dim).astype(np.float32),
-                ))
+        for shard in range(shards):
+            _write_phi_shard(np, rng, os.path.join(
+                d, f"shard_{shard}.tfrecord"), phi_dim)
     d = os.path.join(root, "mocap_neutrMosh")
     os.makedirs(d)
     with TFRecordWriter(os.path.join(d, "neutrSMPL_CMU_0.tfrecord")) as w:
@@ -2281,24 +2340,23 @@ def mesh_worker(argv):
 
 
 def run_mesh_group(world, backend):
-    """Start `world` ranks of this script as subprocesses on `backend`; a
-    rank that fails or outlives MESH_WORKER_TIMEOUT fails the phase (every
-    rank is killed). Returns each rank's results and the group's wall."""
+    """Phase 14's ranks: `world` subprocesses on `backend`."""
+    return run_rank_group(world, "--mesh-worker", [backend],
+                          f"mesh world {world} ({backend})")
+
+
+def run_processes(argvs, envs, what):
+    """Start one process per argv (with its env, from this directory); a
+    process that fails or outlives MESH_WORKER_TIMEOUT fails the phase
+    (every process is killed). Returns each one's output."""
     import tempfile
 
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        url = "file://" + os.path.join(tmp, "rendezvous")
-        env = dict(os.environ)
-        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
-                for r in range(world)]
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
-             str(r), str(world), url, os.path.join(tmp, f"rank{r}.json"),
-             backend],
-            stdout=logs[r], stderr=subprocess.STDOUT, cwd=HERE, env=env)
-            for r in range(world)]
+                for r in range(len(argvs))]
+        procs = [subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT,
+                                  cwd=HERE, env=env)
+                 for argv, env, log in zip(argvs, envs, logs)]
         deadline = time.monotonic() + MESH_WORKER_TIMEOUT
         try:
             for p in procs:
@@ -2315,17 +2373,34 @@ def run_mesh_group(world, backend):
             f.seek(0)
             texts.append(f.read())
             f.close()
-        print(f"--- mesh world {world} ({backend}), rank 0's output ---\n"
-              + texts[0].rstrip())
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        for r in failed:
-            print(f"--- rank {r} exited with {procs[r].returncode} ---\n"
-                  + texts[r][-6000:].rstrip())
-        check(not failed, f"mesh world {world} ({backend}): ranks {failed} "
-              "failed or timed out")
+    print(f"--- {what}, rank 0's output ---\n" + texts[0].rstrip())
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in failed:
+        print(f"--- rank {r} exited with {procs[r].returncode} ---\n"
+              + texts[r][-6000:].rstrip())
+    check(not failed, f"{what}: ranks {failed} failed or timed out")
+    return texts
+
+
+def run_rank_group(world, flag, tail, what):
+    """`world` ranks of this script as subprocesses (chip_smoke.py FLAG
+    RANK WORLD URL OUT *TAIL), every one passing; returns each rank's
+    results and the group's wall."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        url = "file://" + os.path.join(tmp, "rendezvous")
+        env = dict(os.environ)
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        run_processes(
+            [[sys.executable, os.path.abspath(__file__), flag, str(r),
+              str(world), url, outs[r], *tail] for r in range(world)],
+            [env] * world, what)
         results = []
-        for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+        for out in outs:
+            with open(out) as f:
                 results.append(json.load(f))
     return results, time.perf_counter() - t0
 
@@ -2365,6 +2440,477 @@ def phase_mesh(torch, np, dev, K, smpl_cuda, card):
               f"N = {[r['k1_n'] for r in ranks]}")
         res[f"world{world}_{backend}"] = ranks
     print(f"mesh: worlds run {worlds}; phase 14 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: data-parallel training
+# ---------------------------------------------------------------------------
+
+
+def dp_configs():
+    """Phase 15's configurations: phi fp32 fused, and image mode (b) the
+    whole trunk in bf16 and (a) freeze_phi fp32, at full width."""
+    import dataclasses
+
+    from human_dynamics_tpu_torch.utils.config import Config
+
+    phi = Config(batch_size=TRAIN_B, T=TRAIN_T, feature_dim=TRAIN_C,
+                 num_kps=SMPL_KPS, use_fused_smpl=True)
+    image = dataclasses.replace(phi, batch_size=IMG_B, T=IMG_T, img_size=IMG,
+                                precomputed_phi=False, feature_dim=2048)
+    return {"phi fp32 fused": phi,
+            "image (b) unfrozen bf16": dataclasses.replace(
+                image, freeze_phi=False, use_bfloat16=True),
+            "image (a) freeze_phi fp32": image}
+
+
+def dp_batch(torch, name, config, dev):
+    """The global batch of a phase-15 configuration, made on `dev` from a
+    seed (the same on every process)."""
+    if config.precomputed_phi:
+        return train_batch(torch, config, dev, seed=7)
+    return image_batch(torch, config, dev, seed=17)
+
+
+def named_parameters(tr):
+    """(name, parameter) of both of a Trainer's models."""
+    return ([("e." + n, p) for n, p in tr.state.hmmr.named_parameters()]
+            + [("d." + n, p) for n, p in tr.state.disc.named_parameters()])
+
+
+def rel_l2(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def max_rank_difference(torch, tensors, mesh):
+    """The largest |x - rank 0's x| over `tensors` on every rank, summed
+    over the ranks by an all_reduce: 0 when every rank holds rank 0's
+    state, bit for bit."""
+    from human_dynamics_tpu_torch.parallel.mesh import all_sum, broadcast
+
+    worst = torch.zeros(1, device=mesh.device)
+    for t in tensors:
+        ref = broadcast(t.detach().clone(), mesh)
+        worst = torch.maximum(worst, (t.detach().float() - ref.float())
+                              .abs().max().reshape(1))
+    return float(all_sum(worst, mesh))
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """Inside, CUDA ops that have a deterministic implementation use it
+    (an accumulating index_put, cuDNN's convolution algorithms): two runs
+    of the same step give the same bits."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic = prev[2]
+
+
+def dp_world1(torch, np, dev, smpl, K, smpl_cuda, card):
+    """World 1 on NCCL: each configuration's DP Trainer against the plain
+    one from the same state (DP_STEPS steps, losses and every state
+    tensor) with deterministic algorithms, a second plain Trainer with
+    PyTorch's default ones beside it (the run-to-run difference those
+    allow), K1's launches over the DP steps, and the DP and plain steps
+    timed in turns."""
+    import torch.distributed as dist
+
+    from human_dynamics_tpu_torch import parallel
+    from human_dynamics_tpu_torch.train.trainer import Trainer
+
+    def state_err(a, b):
+        errs = [rel_l2(p, q) for p, q in zip(a.state_tensors(),
+                                             b.state_tensors())]
+        return max(errs)
+
+    def loss_err(got, want):
+        return max(abs(float(g[k]) - float(w[k])) / max(abs(float(w[k])),
+                                                        1e-30)
+                   for g, w in zip(got, want) for k in w)
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    out = {"launches": 0, "steps": 0, "ms": {}, "err": {}}
+    failures = []
+    try:
+        mesh = parallel.make_mesh(1, device=dev)
+        for name, config in dp_configs().items():
+            batch = dp_batch(torch, name, config, dev)
+            block = parallel.shard_batch(batch, mesh)
+            plain = Trainer(config, smpl, device=dev)
+            dp = Trainer(config, smpl, device=dev, mesh=mesh)
+            again = Trainer(config, smpl, device=dev)
+            k1 = smpl_cuda.KERNEL_NAME
+
+            def dp_step():
+                before = smpl_cuda.LAUNCHES[k1]
+                m = dp.step(block)
+                torch.cuda.synchronize()
+                launches[0] += smpl_cuda.LAUNCHES[k1] - before
+                return m
+
+            launches = [0]
+            with deterministic_algorithms(torch):
+                want = [plain.step(batch)]
+                first = {n: p.grad.clone() for n, p in named_parameters(plain)
+                         if p.grad is not None}
+                got = [dp_step()]
+                diffs = {n: max_abs(p.grad, first[n])
+                         / max(float(first[n].abs().max()), 1e-30)
+                         for n, p in named_parameters(dp) if n in first}
+                worst = max(diffs, key=diffs.get)
+                first_err = diffs[worst]
+                repeat = [again.step(batch)]
+                repeat_err = max(max_abs(p.grad, first[n])
+                                 for n, p in named_parameters(again)
+                                 if n in first)
+                print(f"dp world 1 {name}, first step, deterministic "
+                      f"algorithms: losses of DP / a second plain Trainer "
+                      f"equal to the plain one's: "
+                      f"{all(float(got[0][k]) == float(want[0][k]) for k in want[0])}"
+                      f" / {all(float(repeat[0][k]) == float(want[0][k]) for k in want[0])}"
+                      f"; gradients: largest difference relative to the "
+                      f"parameter's largest element {first_err:.3e} ({worst}"
+                      f", {sum(v > 0 for v in diffs.values())} of "
+                      f"{len(diffs)} tensors differ; bound "
+                      f"{DP_WORLD1_GRAD_REL:g}) / max abs {repeat_err:.3e}")
+                if first_err > DP_WORLD1_GRAD_REL:
+                    failures.append(f"{name}: first-step gradients")
+                want += [plain.step(batch) for _ in range(DP_STEPS - 1)]
+                got += [dp_step() for _ in range(DP_STEPS - 1)]
+            default = repeat + [again.step(batch)
+                                for _ in range(DP_STEPS - 1)]
+            check(launches[0] == DP_STEPS, f"dp world 1 {name}: K1 launched "
+                  f"{launches[0]} times in {DP_STEPS} steps")
+            out["launches"] += launches[0]
+            out["steps"] += DP_STEPS
+            err = {"loss": loss_err(got, want), "state": state_err(dp, plain),
+                   "default_loss": loss_err(default, want),
+                   "default_state": state_err(again, plain)}
+            out["err"][name] = err
+            print(f"dp world 1 (nccl) {name}: {DP_STEPS} steps against the "
+                  f"plain Trainer.step from the same state, deterministic "
+                  f"algorithms: largest relative loss error "
+                  f"{err['loss']:.3e}, largest relative L2 error of a "
+                  f"parameter, moving average or Adam moment "
+                  f"{err['state']:.3e} (bounds {DP_WORLD1_RTOL:g} and "
+                  f"{DP_WORLD1_STATE_REL:g}); a second "
+                  f"plain Trainer (deterministic algorithms for the first "
+                  f"step, the default ones after): "
+                  f"{err['default_loss']:.3e} and {err['default_state']:.3e}; "
+                  f"K1 {launches[0]} launches")
+            if not (err["loss"] <= DP_WORLD1_RTOL
+                    and err["state"] <= DP_WORLD1_STATE_REL):
+                failures.append(name)
+            del again, default
+            fns = {"plain": lambda: plain.step(batch),
+                   "dp": lambda: dp.step(block)}
+            times = {n: [] for n in fns}
+            for n in ["plain", "dp", "dp", "plain"]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DP_TIMED):
+                    fns[n]()
+                torch.cuda.synchronize()
+                times[n].append((time.perf_counter() - t0) * 1e3 / DP_TIMED)
+            out["ms"][name] = {n: min(v) for n, v in times.items()}
+            if PROFILE:
+                for n, fn in fns.items():
+                    profile_run(torch, f"dp world 1 {name}, {n} step", fn)
+            print(f"smoke timing (not a benchmark) [{card}]: dp world 1 "
+                  f"{name}, global B={config.batch_size} T={config.T}: dp "
+                  f"{out['ms'][name]['dp']:.2f} ms/step, plain "
+                  f"{out['ms'][name]['plain']:.2f} (best of 2 turns of "
+                  f"{DP_TIMED} synchronised steps, in turns plain, dp, dp, "
+                  f"plain; all {times})")
+            del plain, dp, batch, block, fns, want, got
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    check(not failures, f"dp world 1: the DP step left the plain one in "
+          f"{failures}")
+    return out
+
+
+def dp_rank_phi(torch, dev, mesh, smpl, K, smpl_cuda, tag):
+    """Two-rank phi steps: every rank equal after each, rank 0 against the
+    world-1 (plain) step on the global batch, K1 once per rank per step at
+    the rank's N and held to its plain version."""
+    from human_dynamics_tpu_torch import parallel
+    from human_dynamics_tpu_torch.train.trainer import Trainer
+
+    name = "phi fp32 fused"
+    config = dp_configs()[name]
+    batch = dp_batch(torch, name, config, dev)
+    block = parallel.shard_batch(batch, mesh)
+    lead = mesh.rank == 0
+    dp = Trainer(config, smpl, device=dev, mesh=mesh)
+    ref = Trainer(config, smpl, device=dev) if lead else None
+    res = {"rank_diff": [], "loss_err": 0.0}
+    calls, launches = [], 0
+    for step in range(DP_RANK_STEPS):
+        reset_all(K, smpl_cuda)
+        with Recorder(smpl_cuda, ["blend_skin"]) as rec:
+            got = dp.step(block)
+            torch.cuda.synchronize()
+        calls += rec.calls
+        launches += smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME]
+        diff = max_rank_difference(torch, dp.state_tensors(), mesh)
+        res["rank_diff"].append(diff)
+        check(diff == 0.0, f"{tag} {name} step {step}: the ranks differ by "
+              f"{diff}")
+        if lead:
+            want = ref.step(batch)
+            err = max(abs(float(got[k]) - float(want[k]))
+                      / max(abs(float(want[k])), 1e-30) for k in want)
+            res["loss_err"] = max(res["loss_err"], err)
+            check(err <= DP_LOSS_RTOL, f"{tag} {name} step {step}: losses "
+                  f"{err} from the world-1 step")
+            if step == 0:
+                grads = {n: rel_l2(p.grad, q.grad) for (n, p), (_, q) in zip(
+                    named_parameters(dp), named_parameters(ref))}
+                worst = max(grads, key=grads.get)
+                res["grad_err"] = grads[worst]
+                check(grads[worst] <= TRAIN_GRAD_REL, f"{tag} {name}: the "
+                      f"summed gradient of {worst} is {grads[worst]} from "
+                      "the world-1 one")
+    k1_n = [args[0].shape[0] for _, args, _ in calls]
+    check(launches == DP_RANK_STEPS
+          and k1_n == [TRAIN_N // mesh.size] * DP_RANK_STEPS,
+          f"{tag}: K1 launched {launches} times at N = {k1_n} over "
+          f"{DP_RANK_STEPS} steps")
+    planes = max(max(max_abs(a, b) for a, b in zip(
+        smpl_cuda.blend_skin(*args), smpl_cuda.blend_skin_reference(*args)))
+        for _, args, _ in calls)
+    check(planes <= K1_PLANES_TOL, f"{tag}: K1 planes {planes}")
+    res.update(k1_n=k1_n, k1_err=planes)
+    return res
+
+
+def dp_rank_image(torch, dev, mesh, smpl, tag):
+    """One two-rank step of image (b): every rank equal, and rank 0
+    against the world-1 bf16 step and its fp32 counterpart on the global
+    batch."""
+    import dataclasses
+
+    from human_dynamics_tpu_torch import parallel
+    from human_dynamics_tpu_torch.train.trainer import Trainer
+
+    name = "image (b) unfrozen bf16"
+    config = dp_configs()[name]
+    batch = dp_batch(torch, name, config, dev)
+    dp = Trainer(config, smpl, device=dev, mesh=mesh)
+    got = dp.step(parallel.shard_batch(batch, mesh))
+    torch.cuda.synchronize()
+    diff = max_rank_difference(torch, dp.state_tensors(), mesh)
+    check(diff == 0.0, f"{tag} {name}: the ranks differ by {diff}")
+    res = {"rank_diff": [diff]}
+    if mesh.rank != 0:
+        return res
+    grads = {n: p.grad for n, p in named_parameters(dp)
+             if p.grad is not None}
+    del dp
+    torch.cuda.empty_cache()
+    ref = Trainer(config, smpl, device=dev)
+    want = ref.step(batch)
+    ref_grads = dict(named_parameters(ref))
+    ref_grads = {n: ref_grads[n].grad for n in grads}
+    del ref
+    ref32 = Trainer(dataclasses.replace(config, use_bfloat16=False), smpl,
+                    device=dev)
+    want32 = ref32.step(batch)
+    grads32 = dict(named_parameters(ref32))
+    grads32 = {n: grads32[n].grad for n in grads}
+    del ref32
+    torch.cuda.empty_cache()
+    print(f"{tag} {name}: losses, two ranks / world-1 bf16 / world-1 fp32: "
+          + ", ".join(f"{k} {float(got[k]):.6g}/{float(want[k]):.6g}/"
+                      f"{float(want32[k]):.6g}" for k in want))
+
+    def loss_dist(m):
+        return max(abs(float(m[k]) - float(want32[k]))
+                   / max(abs(float(want32[k])), 1e-30) for k in want32)
+
+    def grad_dist(g, part):
+        names = [n for n in g if n.startswith(part)]
+        cat = lambda d: torch.cat([d[n].float().reshape(-1) for n in names])
+        return rel_l2(cat(g), cat(grads32))
+
+    res.update(loss_err=loss_dist(got), loss_bf16=loss_dist(want),
+               loss_vs_world1=max(abs(float(got[k]) - float(want[k]))
+                                  / max(abs(float(want[k])), 1e-30)
+                                  for k in want))
+    check(res["loss_err"] <= DP_BF16_GRAD_FACTOR * res["loss_bf16"]
+          + DP_BF16_LOSS_RTOL, f"{tag} {name}: losses up to "
+          f"{res['loss_err']} from the fp32 step, the world-1 bf16 step's "
+          f"{res['loss_bf16']}")
+    for part in ("e.", "d."):
+        d, w = grad_dist(grads, part), grad_dist(ref_grads, part)
+        res[f"grad_err_{part[0]}"], res[f"grad_bf16_{part[0]}"] = d, w
+        check(d <= DP_BF16_GRAD_FACTOR * w + DP_BF16_GRAD_FLOOR,
+              f"{tag} {name}: the {part[0]} gradient is {d} from the fp32 "
+              f"step's, the world-1 bf16 step's {w}")
+    return res
+
+
+def dp_rank(torch, dev, rank, world, url, out_path):
+    """One rank of phase 15's two-rank group: phi steps and an image step;
+    writes its results to out_path."""
+    import torch.distributed as dist
+
+    from human_dynamics_tpu_torch import parallel
+    from human_dynamics_tpu_torch.core import synthetic_smpl_model
+    from human_dynamics_tpu_torch.ops import resnet_int8_cuda as K
+    from human_dynamics_tpu_torch.ops import smpl_cuda
+
+    parallel.initialize_multihost(
+        {"HD_TPU_COORDINATOR": url, "HD_TPU_NUM_PROCESSES": str(world),
+         "HD_TPU_PROCESS_ID": str(rank)}, device=dev, backend="gloo")
+    try:
+        mesh = parallel.make_mesh(world, device=dev)
+        tag = f"dp world {world} (gloo) rank {rank}"
+        smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS,
+                                    device=dev)
+        t0 = time.perf_counter()
+        res = {"phi": dp_rank_phi(torch, dev, mesh, smpl, K, smpl_cuda, tag)}
+        torch.cuda.empty_cache()
+        res["image"] = dp_rank_image(torch, dev, mesh, smpl, tag)
+        res["steps_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def dp_worker(argv):
+    """Entry of a phase-15 rank: chip_smoke.py --dp-worker RANK WORLD URL
+    OUT."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, HERE)
+    rank, world, url, out_path = argv
+    dev = torch.device("cuda", int(rank) % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dp_rank(torch, dev, int(rank), int(world), url, out_path)
+
+
+def run_train_main(world, data_dir, model_dir):
+    """python -m human_dynamics_tpu_torch.train.main as `world` processes
+    sharing the card over gloo, joined by the HD_TPU_* variables, for
+    DP_MAIN_STEPS steps, every one passing. Returns rank 0's output and
+    the wall."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    argv = [sys.executable, "-m", "human_dynamics_tpu_torch.train.main",
+            "--data_dir", data_dir, "--model_dir", model_dir,
+            "--smpl_model_path", os.path.join(data_dir, "smpl.npz"),
+            "--datasets", "h36m", "insta_variety", "--batch_size",
+            str(TRAIN_B), "--T", str(TRAIN_T), "--feature_dim", str(TRAIN_C),
+            "--num_kps", str(SMPL_KPS), "--use_fused_smpl", "--log_step", "1",
+            "--num_steps", str(DP_MAIN_STEPS), "--backend", "gloo"]
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, HD_TPU_COORDINATOR="file://" + os.path.join(
+            tmp, "rendezvous"), HD_TPU_NUM_PROCESSES=str(world))
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        texts = run_processes(
+            [argv] * world, [dict(env, HD_TPU_PROCESS_ID=str(r))
+                             for r in range(world)],
+            f"dp train.main, {world} processes")
+    return texts[0], time.perf_counter() - t0
+
+
+def phase_dp(torch, np, dev, smpl, K, smpl_cuda, card):
+    """Phase 15: data-parallel training at full width. World 1 on NCCL in
+    this process; K1 timed at a rank's N; then two ranks sharing the card
+    over gloo as subprocesses (phi steps, an image step); then train.main
+    as two processes and a single-process Trainer restoring its
+    checkpoint."""
+    import dataclasses
+    import tempfile
+
+    from human_dynamics_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    res = {"world1": dp_world1(torch, np, dev, smpl, K, smpl_cuda, card)}
+    consts = smpl_cuda.prepare_fused_constants(smpl)
+    n = TRAIN_N // 2
+    g = torch.Generator(device=dev).manual_seed(15)
+    ops = k1_operands(smpl, consts,
+                      torch.randn(n, 10, generator=g, device=dev) * 0.3,
+                      torch.randn(n, 72, generator=g, device=dev) * 0.3)
+    k_ms, p_ms = k1_in_turns(torch, ops)
+    b_ms, b_by = k1_bound(smpl_cuda, n)[:2]
+    res["k1"] = {"n": n, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
+    print(f"K1 N={n} V={SMPL_VERTS} (a rank's rows of a two-rank training "
+          f"step): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    ranks, wall = run_rank_group(2, "--dp-worker", [], "dp world 2 (gloo)")
+    lead = ranks[0]
+    print(f"dp world 2 (gloo, one card): every rank passed in "
+          f"{wall:.1f} s; phi: {DP_RANK_STEPS} steps, ranks equal after "
+          f"each ({[r['phi']['rank_diff'] for r in ranks]}), losses "
+          f"{lead['phi']['loss_err']:.3e} from the world-1 step (bound "
+          f"{DP_LOSS_RTOL:g}), summed gradients {lead['phi']['grad_err']:.3e}"
+          f" (relative L2, worst parameter; bound {TRAIN_GRAD_REL:g}); "
+          f"K1 at N = {[r['phi']['k1_n'] for r in ranks]}, planes within "
+          f"{max(r['phi']['k1_err'] for r in ranks):.3e} of plain; image "
+          f"(b): ranks equal ({[r['image']['rank_diff'] for r in ranks]}), "
+          f"losses up to {lead['image']['loss_vs_world1']:.3e} from the "
+          f"world-1 bf16 step's; from the world-1 fp32 step, the "
+          f"two-rank / world-1 bf16 losses up to "
+          f"{lead['image']['loss_err']:.3e} / "
+          f"{lead['image']['loss_bf16']:.3e}, the HMMR gradient "
+          f"{lead['image']['grad_err_e']:.3e} / "
+          f"{lead['image']['grad_bf16_e']:.3e}, the discriminator's "
+          f"{lead['image']['grad_err_d']:.3e} / "
+          f"{lead['image']['grad_bf16_d']:.3e} (bounds: twice world 1's, "
+          f"+{DP_BF16_LOSS_RTOL:g} and +{DP_BF16_GRAD_FLOOR:g}); steps "
+          f"{lead['steps_s']:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_records(np, tmp, TRAIN_C, shards=2)
+        model_dir = os.path.join(tmp, "run")
+        log, main_s = run_train_main(2, tmp, model_dir)
+        ckpts = sorted(f for f in os.listdir(model_dir)
+                       if f.startswith("ckpt-"))
+        check(ckpts == [f"ckpt-{DP_MAIN_STEPS}.npz"],
+              f"dp train.main wrote {ckpts}")
+        restored = Trainer(dataclasses.replace(
+            dp_configs()["phi fp32 fused"], model_dir=model_dir), smpl,
+            device=dev)
+        fresh = Trainer(dp_configs()["phi fp32 fused"], smpl, device=dev)
+        params = list(zip(named_parameters(restored),
+                          named_parameters(fresh)))
+        moved = sum(not torch.equal(p, q) for (_, p), (_, q) in params)
+        check(restored.state.step == DP_MAIN_STEPS
+              and all(bool(torch.isfinite(t).all())
+                      for t in restored.state_tensors()) and moved,
+              f"dp train.main: the restored Trainer is at step "
+              f"{restored.state.step}, {moved} tensors moved")
+        steps = [ln for ln in log.splitlines() if ln.startswith("step ")]
+        print(f"dp train.main as 2 processes sharing the card over gloo "
+              f"(HD_TPU_* variables, --backend gloo), {DP_MAIN_STEPS} steps "
+              f"on phi records (2 shards per dataset, one per rank) in "
+              f"{main_s:.1f} s with the processes' start; rank 0: "
+              f"{steps}; it alone wrote {ckpts}, which a single-process "
+              f"Trainer restored at step {restored.state.step}, every "
+              f"tensor finite, {moved} of {len(params)} parameters moved "
+              f"from the initial state")
+        del restored, fresh
+    res["world2"] = ranks
+    print(f"phase 15 (data-parallel training) took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return res
 
@@ -2555,6 +3101,9 @@ def main():
     # Phase 14: multi-GPU inference.
     mesh = phase_mesh(torch, np, dev, K, smpl_cuda, card)
 
+    # Phase 15: data-parallel training.
+    dp = phase_dp(torch, np, dev, smpl, K, smpl_cuda, card)
+
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [
         dict(name=smpl_cuda.KERNEL_NAME, source=csrc + "smpl_blend_skin.cu",
@@ -2564,7 +3113,11 @@ def main():
              image_train_launches=image["image_train_launches"],
              image_train_steps=image["image_train_steps"],
              sharded_launches=mesh["launches"][smpl_cuda.KERNEL_NAME],
-             sharded_n=mesh["k1_n"][0], **k1),
+             sharded_n=mesh["k1_n"][0],
+             dp_launches=dp["world1"]["launches"],
+             dp_steps=dp["world1"]["steps"], dp_rank_n=dp["k1"]["n"],
+             dp_ms=dp["k1"]["ms"], dp_plain_ms=dp["k1"]["plain_ms"],
+             dp_bound_ms=dp["k1"]["bound_ms"], **k1),
         dict(name=K.BLOCK, source=csrc + "resnet_int8.cu",
              replaces="human_dynamics_tpu/ops/resnet_int8_pallas.py:151",
              **int8["k2"]),
@@ -2579,11 +3132,15 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1 also runs on the training paths: its launches over the phase-12
     # steps and the phase-13 timed steps, and its times at a training
-    # step's N; and on the sharded windowed path (phase 14, world 1, one
-    # clip) at the rank's N.
+    # step's N; on the sharded windowed path (phase 14, world 1, one clip)
+    # at the rank's N; and on the data-parallel step (phase 15: its
+    # launches over the world-1 DP steps, one per step, and its times at a
+    # rank's N of a two-rank step).
     train_keys = ("train_launches", "train_steps", "train_n", "train_ms",
                   "train_plain_ms", "train_bound_ms", "image_train_launches",
-                  "image_train_steps", "sharded_launches", "sharded_n")
+                  "image_train_steps", "sharded_launches", "sharded_n",
+                  "dp_launches", "dp_steps", "dp_rank_n", "dp_ms",
+                  "dp_plain_ms", "dp_bound_ms")
     print(json.dumps({"kernels": [
         {k: dict(kern, route="cuda")[k] for k in keys
          + tuple(k for k in train_keys if k in kern)} for kern in kernels
@@ -2597,5 +3154,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         mesh_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2:])
     else:
         main()

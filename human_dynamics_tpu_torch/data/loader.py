@@ -19,7 +19,12 @@ call, with the augmentation drawn from a generator on the device seeded from
 ``config.seed``. An image batch holds tensors on the pipeline's device (the
 CUDA device unless the CPU is asked for).
 
-One process reads every shard.
+With ``host_id`` and ``num_hosts`` (one pipeline per process of a
+data-parallel run) each process reads every ``num_hosts``-th shard from its
+``host_id`` on, with its streams' generators seeded ``seed + host_id``, as
+the JAX pipeline shards them; the mocap pool, the batch shuffle and the
+augmentation draws are seeded alike on every process, as in the JAX
+pipeline.
 """
 
 from __future__ import annotations
@@ -113,18 +118,22 @@ class ExampleStream:
     keypoints in source pixels and person centres."""
 
     def __init__(self, files: List[str], t: int, num_kps: int = 25,
-                 seed: int = 0, decode_images: bool = False,
-                 shuffle_buffer: int = 300,
+                 seed: int = 0, host_id: int = 0, num_hosts: int = 1,
+                 decode_images: bool = False, shuffle_buffer: int = 300,
                  shuffle_bytes: Optional[int] = None):
         if not files:
             raise FileNotFoundError("No tfrecord shards found")
-        self.files = files
+        self.files = files[host_id::num_hosts]
+        if not self.files:
+            raise FileNotFoundError(
+                f"No tfrecord shard for host {host_id} of {num_hosts} among "
+                f"{len(files)}")
         self.t = t
         self.num_kps = num_kps
         self.decode_images = decode_images
         self.shuffle_buffer = shuffle_buffer
         self.shuffle_bytes = shuffle_bytes
-        self.rng = np.random.RandomState(seed)
+        self.rng = np.random.RandomState(seed + host_id)
 
     def _raw_stream(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:
@@ -242,10 +251,12 @@ class TrainDataPipeline:
     """Split-balanced batches and the mocap pool, assembled by a prefetch
     thread. Iterating yields ``train.trainer.Batch``es: numpy arrays in phi
     mode; in image mode tensors on ``device`` (None: the CUDA device,
-    raising without one), the frames augmented there. ``close`` stops the
+    raising without one), the frames augmented there. ``host_id`` and
+    ``num_hosts`` pick this process's shards. ``close`` stops the
     thread."""
 
-    def __init__(self, config, prefetch: int = 2, device=None):
+    def __init__(self, config, host_id: int = 0, num_hosts: int = 1,
+                 prefetch: int = 2, device=None):
         from human_dynamics_tpu_torch.train.trainer import fake_pool_size
 
         self.config = config
@@ -275,11 +286,13 @@ class TrainDataPipeline:
         # host memory of each stream.
         shuffle_bytes = (1 << 30) if decode_images else None
         self.stream_2d = iter(ExampleStream(
-            files_2d, config.T, config.num_kps, config.seed,
-            decode_images=decode_images, shuffle_bytes=shuffle_bytes))
+            files_2d, config.T, config.num_kps, config.seed, host_id,
+            num_hosts, decode_images=decode_images,
+            shuffle_bytes=shuffle_bytes))
         self.stream_3d = iter(ExampleStream(
-            files_3d, config.T, config.num_kps, config.seed + 1,
-            decode_images=decode_images, shuffle_bytes=shuffle_bytes))
+            files_3d, config.T, config.num_kps, config.seed + 1, host_id,
+            num_hosts, decode_images=decode_images,
+            shuffle_bytes=shuffle_bytes))
         self.device = None
         if decode_images:
             import torch

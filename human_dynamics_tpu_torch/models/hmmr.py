@@ -10,7 +10,10 @@ the camera [1, 0, 0] and the starting beta re-attached.
 of every head and branch applies dropout with masks from ``g``, and on
 images the ResNet's BatchNorm normalises with the batch's statistics
 (unless ``freeze_bn_stats``); its moving averages advance only inside
-``models.resnet.updating_batch_stats``.
+``models.resnet.updating_batch_stats``. ``mesh`` (a data mesh) makes that
+step this rank's part of a data-parallel one: the BatchNorm statistics are
+those of every rank's frames and the dropout masks those of the global
+batch (``models.ief.RowBlock``).
 """
 
 from __future__ import annotations
@@ -23,10 +26,15 @@ import torch
 from torch import nn
 
 from human_dynamics_tpu_torch.models.hallucinator import Hallucinator
-from human_dynamics_tpu_torch.models.ief import IefRegressor, ief_refine
+from human_dynamics_tpu_torch.models.ief import (
+    IefRegressor,
+    RowBlock,
+    ief_refine,
+)
 from human_dynamics_tpu_torch.models.omega import OMEGA_DIM
 from human_dynamics_tpu_torch.models.resnet import ResNetV2_50
 from human_dynamics_tpu_torch.models.temporal import TemporalEncoderFC2GN
+from human_dynamics_tpu_torch.parallel.mesh import DATA_AXIS
 
 
 def default_mean_omega() -> np.ndarray:
@@ -155,12 +163,13 @@ class HmmrModel(nn.Module):
         """Temporal receptive field."""
         return 4 * self.num_conv_layers + 1
 
-    def encode_images(self, images: torch.Tensor,
-                      train: bool = False) -> torch.Tensor:
+    def encode_images(self, images: torch.Tensor, train: bool = False,
+                      mesh=None) -> torch.Tensor:
         """images (B, T, H, W, 3) in [-1, 1] -> phi (B, T, 2048)."""
         b, t = images.shape[:2]
         phi = self.resnet_v2_50(images.reshape((b * t,) + images.shape[2:]),
-                                train=train and not self.freeze_bn_stats)
+                                train=train and not self.freeze_bn_stats,
+                                mesh=mesh)
         return phi.reshape(b, t, -1)
 
     def _pred_heads(
@@ -195,13 +204,18 @@ class HmmrModel(nn.Module):
         return present.reshape(b, t, OMEGA_DIM), deltas
 
     def forward(self, inputs: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> HmmrOutputs:
+                generator: Optional[torch.Generator] = None,
+                mesh=None) -> HmmrOutputs:
         """``train`` turns the IEF dropout on, with masks drawn from
-        ``generator``, and the ResNet's batch-statistics BatchNorm."""
+        ``generator``, and the ResNet's batch-statistics BatchNorm; with a
+        data ``mesh`` both span the global batch."""
+        if mesh is not None and generator is not None:
+            generator = RowBlock(generator, mesh.index(DATA_AXIS),
+                                 mesh.shape[DATA_AXIS])
         if inputs.dim() == 5:
             if not self.include_resnet:
                 raise ValueError("Model built without resnet but got image input")
-            phi = self.encode_images(inputs, train)
+            phi = self.encode_images(inputs, train, mesh)
         else:
             phi = inputs
 

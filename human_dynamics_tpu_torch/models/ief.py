@@ -8,12 +8,15 @@ stage reads ``[phi, theta]`` in that order.
 Dropout is active only with ``train=True``, and then draws its masks from
 the ``torch.Generator`` passed in (never from the global RNG): a fresh
 mask per layer and per stage call, as flax draws one per ``nn.Dropout``
-call. Kept values are scaled by 1 / keep, as flax does.
+call. Kept values are scaled by 1 / keep, as flax does. Under data
+parallelism the generator comes as a ``RowBlock``: each mask is drawn at
+the global batch's shape and this rank keeps its rows, so the ranks
+together apply the masks of the single-process step.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -22,12 +25,28 @@ from torch import nn
 from human_dynamics_tpu_torch.models.init import xavier_uniform_
 
 
+class RowBlock(NamedTuple):
+    """A dropout generator of a data-parallel step: every rank draws each
+    mask at the global shape, ``parts`` times the rows it holds, in the
+    same order, and keeps the rows of block ``index``."""
+
+    generator: torch.Generator
+    index: int
+    parts: int
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator) -> torch.Tensor:
+            generator: Union[torch.Generator, RowBlock]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate
     and scale it by 1 / (1 - rate); the mask comes from ``generator``."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if isinstance(generator, RowBlock):
+        n = x.shape[0]
+        draws = torch.rand((n * generator.parts,) + x.shape[1:],
+                           generator=generator.generator, device=x.device)
+        mask = draws[generator.index * n:(generator.index + 1) * n] < keep
+    else:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -19,6 +19,15 @@ slim layout needs, kept exactly:
   them again.
 - ``remat`` checkpoints each bottleneck unit (``nn.remat`` in the JAX
   package): only unit inputs are kept for the backward.
+- With a data ``mesh``, train-mode BatchNorm normalises with the statistics
+  of every rank's frames, as GSPMD makes them: each rank's fp32 mean and
+  biased variance go to every rank in one ``parallel.mesh.psum``, which
+  every rank combines alike (the global mean, then the mean of the squared
+  deviations from it); the backward sums their gradients over the ranks in
+  one more. A remat recompute runs the forward one again, on every rank.
+- The inference branch returns the type flax's promotion gives: a bf16
+  input with the fp32 moving statistics of a bf16 training step
+  (``freeze_bn_stats``) comes out fp32, and so does the trunk after it.
 
 The public input is NHWC, as in the JAX package; it is permuted to NCHW
 once at the trunk's entry. Module names follow the flax tree
@@ -39,6 +48,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from human_dynamics_tpu_torch.models.init import lecun_normal_
+from human_dynamics_tpu_torch.parallel.mesh import DATA_AXIS, psum
 
 RESNET50_BLOCKS = ((3, 256, 64), (4, 512, 128), (6, 1024, 256), (3, 2048, 512))
 
@@ -59,17 +69,26 @@ class SlimBatchNorm(nn.Module):
         # Set by updating_batch_stats; cleared by the update it allows.
         self.update_pending = False
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                mesh=None) -> torch.Tensor:
         """x (N, C, H, W). With ``train`` it normalises with the batch's
-        statistics; else with the moving ones, which stay fp32 buffers under
-        a bf16 ``x`` in training, and the result is cast back to ``x``'s
-        type (flax would promote it, and the rest of the trunk, to fp32)."""
+        statistics (every rank's, under a data ``mesh``); else with the
+        moving ones, in the promoted type of ``x`` and the statistics (fp32
+        for a bf16 ``x`` in a bf16 training step, as flax computes it)."""
         if not train:
             inv = torch.rsqrt(self.moving_variance + self.epsilon) * self.gamma
             shift = self.beta - self.moving_mean * inv
-            return (x * inv[:, None, None] + shift[:, None, None]).to(x.dtype)
-        mean = x.mean(dim=(0, 2, 3))
-        var = x.var(dim=(0, 2, 3), unbiased=False)
+            return x * inv[:, None, None] + shift[:, None, None]
+        # In fp32 until one rounding to x's type, as jnp.mean and jnp.var
+        # compute a bf16 input's; a data-parallel step combines the ranks'
+        # fp32 moments before that rounding. torch.var would round a bf16
+        # variance to bf16 first.
+        mean = x.mean(dim=(0, 2, 3), dtype=torch.float32)
+        var = (x.var(dim=(0, 2, 3), unbiased=False)
+               if x.dtype == torch.float32 else _Variance.apply(x, mean))
+        if mesh is not None:
+            mean, var = _global_moments(mean, var, mesh)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
         if self.update_pending:
             self.update_pending = False
             m = self.momentum
@@ -84,6 +103,44 @@ class SlimBatchNorm(nn.Module):
                     + (1.0 - m) * var.detach().to(self.moving_variance.dtype))
         inv = torch.rsqrt(var + self.epsilon) * self.gamma
         return x * inv[:, None, None] + (self.beta - mean * inv)[:, None, None]
+
+
+class _Variance(torch.autograd.Function):
+    """The biased variance of a bf16 x (N, C, H, W) over (N, H, W), in
+    fp32, from the fp32 deviations from its fp32 ``mean`` (jnp.var's two
+    passes). Only x and the mean are kept for the backward, as torch.var
+    keeps x; the deviations are formed again there."""
+
+    @staticmethod
+    def forward(ctx, x, mean):
+        ctx.save_for_backward(x, mean)
+        dev = x.float() - mean[:, None, None]
+        return dev.square_().mean(dim=(0, 2, 3))
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, mean = ctx.saved_tensors
+        scale = grad * (2.0 * x.shape[1] / x.numel())
+        dx = (x.float() - mean[:, None, None]) * scale[:, None, None]
+        # d var / d mean = -2 mean(x - mean) is zero.
+        return dx.to(x.dtype), None
+
+
+def _global_moments(mean: torch.Tensor, var: torch.Tensor, mesh):
+    """The fp32 mean and biased variance of every rank's frames from each
+    rank's own (every rank holds as many frames), by one ``psum`` of every
+    rank's pair placed in its row of a zeroed (ranks, 2, C) buffer: the
+    global mean, then the mean of the squared deviations from it (each
+    rank's variance plus its mean's squared distance from the global one),
+    summed in rank order on every rank. With one rank they are ``mean`` and
+    ``var`` unchanged."""
+    world = mesh.shape[DATA_AXIS]
+    rows = torch.zeros((world, 2) + mean.shape, device=mean.device)
+    rows[mesh.index(DATA_AXIS)] = torch.stack([mean.float(), var.float()])
+    m, v = psum(rows, mesh, DATA_AXIS).unbind(1)
+    g_mean = (m * (1.0 / world)).sum(0)
+    g_var = ((v + (m - g_mean) ** 2) * (1.0 / world)).sum(0)
+    return g_mean, g_var
 
 
 @contextlib.contextmanager
@@ -138,26 +195,29 @@ class BottleneckV2(nn.Module):
         self.conv2_bn = SlimBatchNorm(depth_bottleneck, device=device)
         self.conv3 = _conv(depth_bottleneck, depth, 1, 1, True, device)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        preact = F.relu(self.preact(x, train))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                mesh=None) -> torch.Tensor:
+        preact = F.relu(self.preact(x, train, mesh))
         if self.shortcut is None:
             shortcut = x[:, :, ::self.stride, ::self.stride]
         else:
             shortcut = self.shortcut(preact)
-        residual = F.relu(self.conv1_bn(self.conv1(preact), train))
-        residual = F.relu(self.conv2_bn(self.conv2(residual), train))
+        residual = F.relu(self.conv1_bn(self.conv1(preact), train, mesh))
+        residual = F.relu(self.conv2_bn(self.conv2(residual), train, mesh))
         return shortcut + self.conv3(residual)
 
 
-def _rematerialised(unit: BottleneckV2, x: torch.Tensor, train: bool):
-    """``unit(x, train)`` keeping only ``x`` for the backward, which runs
-    the unit again. The unit's parameters go in as arguments, so that the
-    recompute sees the tensors the forward saw (the bf16 casts under
+def _rematerialised(unit: BottleneckV2, x: torch.Tensor, train: bool,
+                    mesh=None):
+    """``unit(x, train, mesh)`` keeping only ``x`` for the backward, which
+    runs the unit again. The unit's parameters go in as arguments, so that
+    the recompute sees the tensors the forward saw (the bf16 casts under
     ``torch.func.functional_call``), not the module's own."""
     names, tensors = zip(*unit.named_parameters())
 
     def run(x, *tensors):
-        return functional_call(unit, dict(zip(names, tensors)), (x, train))
+        return functional_call(unit, dict(zip(names, tensors)),
+                               (x, train, mesh))
 
     return checkpoint(run, x, *tensors, use_reentrant=False,
                       preserve_rng_state=False)
@@ -199,14 +259,16 @@ class ResNetV2_50(nn.Module):
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """``train``: BatchNorm on the batch's statistics."""
+    def forward(self, x: torch.Tensor, train: bool = False,
+                mesh=None) -> torch.Tensor:
+        """``train``: BatchNorm on the batch's statistics (every rank's
+        frames under a data ``mesh``)."""
         net = self.conv1(x.permute(0, 3, 1, 2))
         net = max_pool_same(net)
         remat = self.remat and torch.is_grad_enabled()
         for bi in range(1, self.num_blocks + 1):
             for unit in getattr(self, f"block{bi}").values():
-                net = (_rematerialised(unit, net, train) if remat
-                       else unit(net, train))
-        net = F.relu(self.postnorm(net, train))
+                net = (_rematerialised(unit, net, train, mesh) if remat
+                       else unit(net, train, mesh))
+        net = F.relu(self.postnorm(net, train, mesh))
         return net.mean(dim=(2, 3))

@@ -15,7 +15,11 @@ buffer into which each rank writes its own block (x + 0 is exact).
 - ``make_mesh`` / ``make_mesh_2d``: the mesh over the whole process group.
 - ``shard_batch`` / ``shard_batch_2d``: this rank's contiguous block of a
   batch, with the JAX functions' divisibility errors.
-- ``replicate``: rank 0's tensors on every rank.
+- ``replicate``: rank 0's tensors on every rank; ``broadcast_tensors`` does it
+  in place.
+- ``psum``: a sum over the ranks that autograd differentiates (its backward
+  sums the incoming gradients over the same ranks); ``sum_gradients``: every
+  gradient of some modules summed over the ranks in one ``all_reduce``.
 - ``make_mesh_tp`` / ``shard_params_tp``: wait for training (ROADMAP.md,
   Queue 1 item 5b).
 """
@@ -27,6 +31,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+# The axis data-parallel training splits the batch over.
+DATA_AXIS = "data"
 
 _TP_ITEM = (
     "tensor-parallel parameter sharding is not ported yet (ROADMAP.md, "
@@ -187,6 +194,71 @@ def broadcast(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None
     with torch.inference_mode(t.is_inference()):
         dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
     return t
+
+
+def barrier(mesh: Mesh) -> None:
+    """Wait until every rank of the mesh gets here (an ``all_reduce`` of one
+    element on the mesh's device, which gloo and NCCL both run)."""
+    all_sum(torch.zeros(1, device=mesh.device), mesh)
+
+
+class _PSum(torch.autograd.Function):
+    """Sum over the ranks of a row; the backward sums the incoming
+    gradients over the same ranks. The forward reduces a copy: gloo writes
+    its result back in place, which must not reach a tensor autograd
+    saved."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_sum(x.detach().clone(memory_format=torch.contiguous_format),
+                       mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_sum(grad.clone(memory_format=torch.contiguous_format),
+                       ctx.mesh, ctx.axis), None, None
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axis: Optional[str] = None
+         ) -> torch.Tensor:
+    """``x`` summed over the ranks of this rank's ``axis`` row, as a new
+    tensor that autograd differentiates: with each rank's loss a share of
+    one global loss, the gradient that reaches ``x`` is the global loss's.
+    Every rank must call it at the same point, forward and backward."""
+    return _PSum.apply(x, mesh, axis)
+
+
+def _flat_collective(tensors, op) -> None:
+    """``op`` on one flat buffer per dtype holding every tensor, then the
+    results copied back into the tensors."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        op(flat)
+        for t, piece in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(piece.view_as(t))
+
+
+@torch.no_grad()
+def broadcast_tensors(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
+    """Rank 0's values of ``tensors`` (parameters, buffers, optimizer
+    moments: the same list in the same order on every rank) on every rank,
+    in place, in one broadcast per dtype."""
+    _flat_collective(list(tensors), lambda flat: broadcast(flat, mesh))
+
+
+@torch.no_grad()
+def sum_gradients(modules: Sequence[torch.nn.Module], mesh: Mesh,
+                  axis: Optional[str] = DATA_AXIS) -> None:
+    """Every gradient of ``modules`` (the parameters whose ``grad`` is set)
+    summed over the ranks of this rank's ``axis`` row, in place: one
+    ``all_reduce`` of a flat buffer per dtype, not one per parameter."""
+    grads = [p.grad for m in modules for p in m.parameters()
+             if p.grad is not None]
+    _flat_collective(grads, lambda flat: all_sum(flat, mesh, axis))
 
 
 def assemble(

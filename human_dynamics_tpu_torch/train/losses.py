@@ -5,37 +5,56 @@ keep TF's SUM_BY_NONZERO_WEIGHTS reduction: sum(w * l) / count(w != 0),
 the count taken over the weights broadcast against the losses and at
 least 1 (so an all-masked loss is 0, not NaN). That denominator changes a
 loss's scale against a plain mean whenever visibility masks are sparse.
+
+Each loss takes ``mesh``: None computes the loss of the batch it is given;
+a data mesh (``parallel.make_mesh``) makes it this rank's share of the loss
+of the global batch, whose other rows the other ranks hold. The share is
+the rank's sum divided by the global count: the nonzero weights summed
+over the ranks (an ``all_reduce``, outside autograd), or the element count
+times the number of ranks, every rank holding an equal block. The shares
+of all ranks add up to the global loss, and so do their gradients.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from human_dynamics_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, all_sum
 
 from human_dynamics_tpu_torch.core.projection import orth_proj_optcam
 
 
-def _sum_by_nonzero_weights(losses: torch.Tensor,
-                            weights: torch.Tensor) -> torch.Tensor:
+def _sum_by_nonzero_weights(losses: torch.Tensor, weights: torch.Tensor,
+                            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """sum(w * l) / max(1, #nonzero w broadcast against l)."""
     weighted = losses * weights
     nonzero = torch.broadcast_to(weights != 0.0, losses.shape).sum()
+    if mesh is not None:
+        nonzero = all_sum(nonzero, mesh, DATA_AXIS)
     return weighted.sum() / torch.clamp(nonzero, min=1).to(losses.dtype)
 
 
-def keypoint_l1_loss(kp_gt: torch.Tensor,
-                     kp_pred: torch.Tensor) -> torch.Tensor:
+def _mean(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """mean(x); with a mesh this rank's share of the global batch's mean."""
+    if mesh is None:
+        return torch.mean(x)
+    return x.sum() / (x.numel() * mesh.shape[DATA_AXIS])
+
+
+def keypoint_l1_loss(kp_gt: torch.Tensor, kp_pred: torch.Tensor,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Visibility-weighted L1 keypoint loss; kp_gt (..., K, 3) with the
     visibility channel, kp_pred (..., K, 2)."""
     gt = kp_gt.reshape(-1, 3)
     pred = kp_pred.reshape(-1, 2)
     vis = gt[:, 2:3].to(pred.dtype)
-    return _sum_by_nonzero_weights(torch.abs(gt[:, :2] - pred), vis)
+    return _sum_by_nonzero_weights(torch.abs(gt[:, :2] - pred), vis, mesh)
 
 
 def keypoint_l1_loss_optcam(
-    kp_gt: torch.Tensor, kp_pred: torch.Tensor
+    kp_gt: torch.Tensor, kp_pred: torch.Tensor, mesh: Optional[Mesh] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """L1 after the per-frame optimal (detached) camera.
 
@@ -46,14 +65,16 @@ def keypoint_l1_loss_optcam(
     gt = kp_gt.reshape(b * t, -1, 3)
     pred = kp_pred.reshape(b * t, -1, 2)
     pred_sim, best_cam = orth_proj_optcam(pred, gt)
-    return keypoint_l1_loss(gt, pred_sim), best_cam.reshape(b, t, 3)
+    return keypoint_l1_loss(gt, pred_sim, mesh), best_cam.reshape(b, t, 3)
 
 
 def masked_mse(params_gt: torch.Tensor, params_pred: torch.Tensor,
-               has_gt: torch.Tensor) -> torch.Tensor:
+               has_gt: torch.Tensor, mesh: Optional[Mesh] = None
+               ) -> torch.Tensor:
     """0.5 * weighted MSE with a per-row mask."""
     w = has_gt.to(params_pred.dtype).reshape(-1, 1)
-    return 0.5 * _sum_by_nonzero_weights((params_gt - params_pred) ** 2, w)
+    return 0.5 * _sum_by_nonzero_weights((params_gt - params_pred) ** 2, w,
+                                         mesh)
 
 
 def align_by_pelvis(joints: torch.Tensor) -> torch.Tensor:
@@ -72,6 +93,7 @@ def loss_3d(
     joints_pred: torch.Tensor,
     has_gt3d_smpl: torch.Tensor,
     has_gt3d_joints: torch.Tensor,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pose-rotmat MSE, shape MSE and pelvis-aligned joint MSE, each masked
     by availability.
@@ -83,39 +105,44 @@ def loss_3d(
     jg = align_by_pelvis(joints_gt.reshape(-1, joints_gt.shape[-2], 3))
     jp = align_by_pelvis(joints_pred.reshape(-1, joints_pred.shape[-2], 3))
     loss_pose = masked_mse(poses_gt.reshape(n, -1),
-                           poses_pred.reshape(n, -1), has_gt3d_smpl)
+                           poses_pred.reshape(n, -1), has_gt3d_smpl, mesh)
     loss_shape = masked_mse(shapes_gt.reshape(n, -1),
-                            shapes_pred.reshape(n, -1), has_gt3d_smpl)
+                            shapes_pred.reshape(n, -1), has_gt3d_smpl, mesh)
     loss_joints = masked_mse(jg.reshape(n, -1), jp.reshape(n, -1),
-                             has_gt3d_joints)
+                             has_gt3d_joints, mesh)
     return loss_pose, loss_shape, loss_joints
 
 
-def beta_smoothness_loss(shapes: torch.Tensor) -> torch.Tensor:
+def beta_smoothness_loss(shapes: torch.Tensor,
+                         mesh: Optional[Mesh] = None) -> torch.Tensor:
     """0.5 * MSE between consecutive betas; shapes (B, T, 10)."""
-    return 0.5 * torch.mean((shapes[:, :-1] - shapes[:, 1:]) ** 2)
+    return 0.5 * _mean((shapes[:, :-1] - shapes[:, 1:]) ** 2, mesh)
 
 
-def shape_prior_loss(shapes: torch.Tensor) -> torch.Tensor:
+def shape_prior_loss(shapes: torch.Tensor,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     """L2 prior on betas."""
-    return torch.mean(shapes ** 2)
+    return _mean(shapes ** 2, mesh)
 
 
 # LSGAN losses on discriminator outputs (N, 24).
 
-def lsgan_encoder_loss(out_fake: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.sum((out_fake - 1.0) ** 2, dim=1))
+def lsgan_encoder_loss(out_fake: torch.Tensor,
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
+    return _mean(torch.sum((out_fake - 1.0) ** 2, dim=1), mesh)
 
 
-def lsgan_disc_fake_loss(out_fake: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.sum(out_fake ** 2, dim=1))
+def lsgan_disc_fake_loss(out_fake: torch.Tensor,
+                         mesh: Optional[Mesh] = None) -> torch.Tensor:
+    return _mean(torch.sum(out_fake ** 2, dim=1), mesh)
 
 
-def lsgan_disc_real_loss(out_real: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.sum((out_real - 1.0) ** 2, dim=1))
+def lsgan_disc_real_loss(out_real: torch.Tensor,
+                         mesh: Optional[Mesh] = None) -> torch.Tensor:
+    return _mean(torch.sum((out_real - 1.0) ** 2, dim=1), mesh)
 
 
-def hallucinator_mse(movie_strip: torch.Tensor,
-                     hal_strip: torch.Tensor) -> torch.Tensor:
+def hallucinator_mse(movie_strip: torch.Tensor, hal_strip: torch.Tensor,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     """mean((movie_strip - hal_strip)^2); the gradient flows into both."""
-    return torch.mean((movie_strip - hal_strip) ** 2)
+    return _mean((movie_strip - hal_strip) ** 2, mesh)

@@ -38,7 +38,23 @@ parameters, not the buffers); ``remat_resnet`` checkpoints each bottleneck
 unit. ``freeze_phi`` leaves the whole ResNet out of the gradient and of
 Adam, ``freeze_resnet_stages`` = n its root and blocks 1..n-1; as the
 images take no gradient, no backward runs below the first trainable
-stage. The moving averages are ``batch_stats`` in the checkpoints.
+stage. The moving averages are ``batch_stats`` in the checkpoints. With
+``use_bfloat16`` and ``freeze_bn_stats`` the inference-mode BatchNorm meets
+fp32 moving averages, and flax promotes: the trunk after the root conv and
+the whole model after it compute in fp32 on the bf16-rounded parameters.
+
+Data parallelism (``Trainer(..., mesh=make_mesh(W))``, one process per
+device) computes what GSPMD makes of the JAX step on a replicated state and
+a ``shard_batch``ed batch. Each rank steps on its block of the global batch
+(``config.batch_size`` stays the global size, so a loss's scale and the
+learning rate do not depend on W): its rows through one forward and one
+SMPL decode, each loss as its share of the global one (``train.losses``
+with the mesh), dropout masks drawn at the global shape, train-mode
+BatchNorm on every rank's frames. The one backward is followed by one
+``all_reduce`` of every gradient of both models
+(``parallel.mesh.sum_gradients``), so both Adams take the global gradient
+and every rank ends the step with the same parameters, moments and moving
+averages, bit for bit. With one rank the step is the single-process one.
 """
 
 from __future__ import annotations
@@ -72,6 +88,14 @@ from human_dynamics_tpu_torch.ops.smpl_cuda import (
     FusedSmplConstants,
     prepare_fused_constants,
 )
+from human_dynamics_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    all_sum,
+    barrier,
+    broadcast_tensors,
+    sum_gradients,
+)
 from human_dynamics_tpu_torch.train import losses as L
 from human_dynamics_tpu_torch.utils.checkpoint import (
     checkpoint_top_keys,
@@ -92,6 +116,7 @@ from human_dynamics_tpu_torch.utils.weights import (
 TrainConfig = Config  # the single Config drives training too
 
 _RESNET = "resnet_v2_50."
+_ROOT_CONV = _RESNET + "conv1."
 
 
 class Batch(NamedTuple):
@@ -266,6 +291,22 @@ def _outputs_f32(out: HmmrOutputs) -> HmmrOutputs:
     return HmmrOutputs(*[cast(v) for v in out])
 
 
+def _bf16_params(config: Config, hmmr: HmmrModel) -> Dict[str, torch.Tensor]:
+    """The parameters a bf16 step applies, cast inside the autograd graph.
+
+    The buffers (BatchNorm's moving averages) stay the module's own fp32
+    tensors. Under ``freeze_bn_stats`` the ResNet's BatchNorms normalise
+    with them, and flax promotes: the first one's output is fp32, and every
+    layer after the root conv computes in fp32 on its bf16 parameters
+    upcast. So those parameters come as bf16 roundings in fp32.
+    """
+    params = to_bf16(dict(hmmr.named_parameters()))
+    if config.freeze_bn_stats and hmmr.include_resnet:
+        params = {k: v if k.startswith(_ROOT_CONV) else v.float()
+                  for k, v in params.items()}
+    return params
+
+
 def compute_losses(
     config: Config,
     hmmr: HmmrModel,
@@ -275,26 +316,29 @@ def compute_losses(
     train: bool = True,
     generator: Optional[torch.Generator] = None,
     fused_constants: Optional[FusedSmplConstants] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Returns (e_loss, d_loss, metrics dict of every loss and both sums).
 
     ``train`` turns the IEF dropout on (masks from ``generator``) and, in
     image mode, the ResNet's train-mode BatchNorm, whose moving averages
     advance in place. ``fused_constants`` (only with ``use_fused_smpl``) are the fused
-    kernel's constants, prepared once by the caller.
+    kernel's constants, prepared once by the caller. With a data ``mesh``
+    ``batch`` is this rank's block of the global batch, and every loss and
+    metric is this rank's share of the global batch's (the ranks' shares
+    sum to it); its fake pool is its own rows of every head and its real
+    pool its block of ``poses_real``.
     """
     b, t = batch.phis.shape[0], config.T
+    kwargs = {"train": train, "generator": generator, "mesh": mesh}
     with (updating_batch_stats(hmmr) if train else contextlib.nullcontext()):
         if config.use_bfloat16:
-            # The buffers (BatchNorm's moving averages) stay the module's
-            # own fp32 tensors.
-            params = to_bf16(dict(hmmr.named_parameters()))
             out = _outputs_f32(functional_call(
-                hmmr, params, (batch.phis.to(torch.bfloat16),),
-                {"train": train, "generator": generator},
+                hmmr, _bf16_params(config, hmmr),
+                (batch.phis.to(torch.bfloat16),), kwargs,
             ))
         else:
-            out = hmmr(batch.phis, train=train, generator=generator)
+            out = hmmr(batch.phis, **kwargs)
 
     gt = OmegaGt.create(batch.poses_gt, batch.shapes_gt, batch.joints_gt,
                         batch.kps)
@@ -332,10 +376,10 @@ def compute_losses(
             kps_pred = orth_proj_idrot(
                 sm.joints[idx].reshape(b * t, -1, 3), cams.reshape(b * t, 3)
             ).reshape(b, t, -1, 2)
-            loss_kp = L.keypoint_l1_loss(gt.kps, kps_pred)
+            loss_kp = L.keypoint_l1_loss(gt.kps, kps_pred, mesh)
         else:
             loss_kp, _ = L.keypoint_l1_loss_optcam(
-                gt.kps[:, s_gt], sm.kps[idx][:, s_pr])
+                gt.kps[:, s_gt], sm.kps[idx][:, s_pr], mesh)
 
         if config.use_3d_label:
             seq_len = t - abs(dt)
@@ -350,6 +394,7 @@ def compute_losses(
                                                       seq_len),
                 has_gt3d_joints=torch.repeat_interleave(batch.has_3d_joints,
                                                         seq_len),
+                mesh=mesh,
             )
         else:
             lp = ls = lj = torch.zeros((), device=raw.device)
@@ -369,10 +414,10 @@ def compute_losses(
 
     if not static_mode:
         losses["e_const"] = L.beta_smoothness_loss(
-            split_omega(out.omega_pred)[2])
+            split_omega(out.omega_pred)[2], mesh)
     if out.hal_strip is not None:
         losses["e_hallucinate"] = L.hallucinator_mse(out.movie_strip,
-                                                     out.hal_strip)
+                                                     out.hal_strip, mesh)
 
     # Adversarial prior, without the global rotation: E meets a frozen
     # critic, D meets detached fakes.
@@ -388,10 +433,10 @@ def compute_losses(
     disc_out = disc(torch.cat([real_in, fake_in.detach()]))
     out_real, out_fake_for_d = disc_out.split([len(real_in), len(fake_in)])
 
-    losses["e_pose"] = L.lsgan_encoder_loss(out_fake_for_e)
-    losses["d_pose"] = (L.lsgan_disc_fake_loss(out_fake_for_d)
-                        + L.lsgan_disc_real_loss(out_real))
-    losses["e_shape"] = L.shape_prior_loss(shapes_fake)
+    losses["e_pose"] = L.lsgan_encoder_loss(out_fake_for_e, mesh)
+    losses["d_pose"] = (L.lsgan_disc_fake_loss(out_fake_for_d, mesh)
+                        + L.lsgan_disc_real_loss(out_real, mesh))
+    losses["e_shape"] = L.shape_prior_loss(shapes_fake, mesh)
 
     weights = loss_weight_table(config)
     e_loss = torch.zeros((), device=poses_fake.device)
@@ -415,6 +460,15 @@ def _zero_grads(opt: torch.optim.Optimizer) -> None:
                 p.grad.zero_()
 
 
+def _global_metrics(metrics: Dict[str, torch.Tensor],
+                    mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """Every rank's shares of the metrics summed, in one ``all_reduce``."""
+    names = list(metrics)
+    flat = all_sum(torch.stack([metrics[k].detach().float() for k in names]),
+                   mesh, DATA_AXIS)
+    return dict(zip(names, flat.unbind()))
+
+
 def train_step(
     config: Config,
     state: TrainState,
@@ -422,17 +476,24 @@ def train_step(
     batch: Batch,
     generator: torch.Generator,
     fused_constants: Optional[FusedSmplConstants] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, torch.Tensor]:
     """One simultaneous E/D update of ``state`` in place; returns the
-    metrics as detached device scalars (no host sync)."""
+    metrics as detached device scalars (no host sync). With a data
+    ``mesh``, ``batch`` is this rank's block; the gradients are summed over
+    the ranks before the Adams step, and the metrics are the global
+    losses."""
     with full_fp32():
         e_loss, d_loss, metrics = compute_losses(
             config, state.hmmr, state.disc, smpl, batch, train=True,
-            generator=generator, fused_constants=fused_constants,
+            generator=generator, fused_constants=fused_constants, mesh=mesh,
         )
         _zero_grads(state.opt_e)
         _zero_grads(state.opt_d)
         (e_loss + d_loss).backward()
+    if mesh is not None:
+        sum_gradients((state.hmmr, state.disc), mesh, DATA_AXIS)
+        metrics = _global_metrics(metrics, mesh)
     state.opt_e.step()
     state.opt_d.step()
     state.step += 1
@@ -484,9 +545,18 @@ def _step_seed(seed: int, step: int) -> int:
 class Trainer:
     """Owns the state, the step, logging and checkpoints.
 
-    ``device`` None means the CUDA device (and raises without one); the CPU
-    runs only when asked for. With ``config.model_dir`` set, the newest
-    checkpoint there is restored.
+    ``device`` None means the CUDA device (and raises without one), or the
+    mesh's; the CPU runs only when asked for. With ``config.model_dir`` set,
+    the newest checkpoint there is restored.
+
+    With a data ``mesh`` (one process per device, every one making the same
+    calls) the Trainer is this rank's part of a data-parallel one: rank 0's
+    state is broadcast at construction, ``step`` takes this rank's block of
+    the global batch (``parallel.shard_batch``, or a pipeline of
+    ``batch_size // W`` with ``host_id=rank``), only rank 0 writes
+    checkpoints and logs while the others wait, and every rank restores the
+    same checkpoint. ``config.batch_size`` is the global batch, which the
+    mesh's data axis must divide.
     """
 
     # SMPL joint names of the 23 per-joint discriminator heads.
@@ -500,8 +570,16 @@ class Trainer:
     )
 
     def __init__(self, config: Config, smpl: SmplModel, data_iter=None,
-                 logger=None, device=None):
+                 logger=None, device=None, mesh: Optional[Mesh] = None):
         self.config = config
+        self.mesh = mesh
+        if mesh is not None:
+            world = mesh.shape[DATA_AXIS]
+            if config.batch_size % world:
+                raise ValueError(
+                    f"batch_size {config.batch_size} is not divisible by the "
+                    f"mesh's {DATA_AXIS!r} axis of {world} ranks")
+            device = mesh.device if device is None else device
         self.device = resolve_device(device)
         self.smpl = smpl.to(self.device)
         self.data_iter = data_iter
@@ -510,6 +588,8 @@ class Trainer:
             config, self.device,
             torch.Generator(device=self.device).manual_seed(config.seed),
         )
+        if mesh is not None:
+            broadcast_tensors(self.state_tensors(), mesh)
         self.fused_constants = (
             prepare_fused_constants(self.smpl) if config.use_fused_smpl
             else None
@@ -519,23 +599,47 @@ class Trainer:
         if config.model_dir:
             self.maybe_restore(config.model_dir)
 
+    @property
+    def is_lead(self) -> bool:
+        """Whether this process writes checkpoints and logs: rank 0, or
+        the only process."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def state_tensors(self):
+        """Every parameter, buffer and Adam moment, in one order on every
+        rank."""
+        st = self.state
+        out = [t for m in (st.hmmr, st.disc)
+               for t in list(m.parameters()) + list(m.buffers())]
+        for opt in (st.opt_e, st.opt_d):
+            for p in opt.param_groups[0]["params"]:
+                out += [v for v in opt.state.get(p, {}).values()
+                        if torch.is_tensor(v) and v.dim()]
+        return out
+
     # ------------------------------------------------------------------
     # Checkpoints
     # ------------------------------------------------------------------
 
     def save(self) -> Optional[str]:
-        """model_dir/ckpt-<step>.npz, or None without a model_dir."""
+        """model_dir/ckpt-<step>.npz (its path), or None without a
+        model_dir. Under a mesh rank 0 writes it and every rank returns
+        once it is written."""
         if not self.config.model_dir:
             return None
         st = self.state
-        tree = {"params_e": export_jax_variables(st.hmmr),
-                "params_d": export_jax_variables(st.disc),
-                "step": np.int32(st.step)}
-        if not self.config.save_params_only:
-            tree["opt_state_e"] = _export_adam(st.hmmr, st.opt_e)
-            tree["opt_state_d"] = _export_adam(st.disc, st.opt_d)
-        return save_checkpoint(
-            os.path.join(self.config.model_dir, f"ckpt-{st.step}.npz"), tree)
+        path = os.path.join(self.config.model_dir, f"ckpt-{st.step}.npz")
+        if self.is_lead:
+            tree = {"params_e": export_jax_variables(st.hmmr),
+                    "params_d": export_jax_variables(st.disc),
+                    "step": np.int32(st.step)}
+            if not self.config.save_params_only:
+                tree["opt_state_e"] = _export_adam(st.hmmr, st.opt_e)
+                tree["opt_state_d"] = _export_adam(st.disc, st.opt_d)
+            path = save_checkpoint(path, tree)
+        if self.mesh is not None:
+            barrier(self.mesh)
+        return path
 
     def maybe_restore(self, model_dir: str) -> bool:
         """Restore the newest checkpoint of ``model_dir``; a params-only
@@ -597,7 +701,8 @@ class Trainer:
     @torch.no_grad()
     def histogram_summary(self, batch: Batch) -> None:
         """Log beta and per-joint discriminator-output histograms; one
-        extra forward at summary cadence."""
+        extra forward at summary cadence. Under a mesh only rank 0 logs,
+        so the histograms are of rank 0's rows of the global batch."""
         if self.logger is None:
             return
         step_no = self.state.step
@@ -622,18 +727,21 @@ class Trainer:
 
     def step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """One training step on a batch of tensors on the trainer's
-        device; returns device scalars."""
+        device (under a mesh, this rank's block of the global batch);
+        returns device scalars, the global batch's losses."""
         self.dropout_generator.manual_seed(
             _step_seed(self.config.seed, self.state.step))
         return train_step(self.config, self.state, self.smpl, batch,
-                          self.dropout_generator, self.fused_constants)
+                          self.dropout_generator, self.fused_constants,
+                          self.mesh)
 
     def train(self, num_steps: int,
               profile_steps: Optional[range] = None) -> Dict[str, float]:
         """``num_steps`` steps from ``data_iter`` with logging, summaries,
         loss proportions every 500 steps and checkpoints every
         ``save_step``; a ``torch.profiler`` trace of ``profile_steps``
-        goes to model_dir/profile."""
+        goes to model_dir/profile. Under a mesh only rank 0 logs, profiles
+        and writes the loss proportions."""
         from human_dynamics_tpu_torch.utils.logging import (
             StepTimer,
             profile_trace,
@@ -648,7 +756,7 @@ class Trainer:
         with contextlib.ExitStack() as trace:
             for _ in range(num_steps):
                 step_no = self.state.step
-                if profile_steps is not None:
+                if profile_steps is not None and self.is_lead:
                     if step_no == profile_steps.start and not profiling:
                         trace.enter_context(profile_trace(os.path.join(
                             self.config.model_dir or ".", "profile")))
@@ -662,14 +770,15 @@ class Trainer:
                 timer.tick()
                 step_no = self.state.step
 
-                if step_no % self.config.log_step == 0:
+                if self.is_lead and step_no % self.config.log_step == 0:
                     m = {k: float(v) for k, v in metrics.items()}
                     if self.logger is not None:
                         self.logger.log_scalars(step_no, m)
                     print(f"step {step_no}: e_loss={m['e_loss']:.4f} "
                           f"d_loss={m['d_loss']:.4f} "
                           f"({timer.mean_ms:.0f} ms/step)")
-                if (self.logger is not None and self.config.log_img_step
+                if (self.is_lead and self.logger is not None
+                        and self.config.log_img_step
                         and step_no % self.config.log_img_step == 0):
                     try:
                         strip = self.render_summary(batch)
@@ -680,7 +789,8 @@ class Trainer:
                         self.histogram_summary(batch)
                     except Exception as exc:
                         print(f"histogram_summary failed: {exc}")
-                if step_no % 500 == 0 and self.config.model_dir:
+                if (self.is_lead and step_no % 500 == 0
+                        and self.config.model_dir):
                     write_loss_proportions(
                         self.config.model_dir, step_no,
                         {k: float(v) for k, v in metrics.items()},

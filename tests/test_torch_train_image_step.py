@@ -13,6 +13,14 @@ heads evaluated with train=False), so that the train-mode BatchNorm and its
 statistics are compared on the same numbers. The JAX programs are compiled
 with XLA's backend optimisation level 0, which halves their compile time.
 
+The data-parallel step (Trainer(mesh=), two gloo ranks as subprocesses,
+tests/torch_mesh_worker.py) is held to the same JAX step on the global
+batch, at the same tolerances: JAX's step on a 2-device mesh computes it
+too (tests/test_image_mode_training.py holds the two together), and its
+programs would double this file's compile time. Each rank holds one tube,
+so every train-mode BatchNorm normalises with statistics of both ranks'
+frames. With one rank, the mesh step is the single-process step exactly.
+
 Tolerances:
 - fp32 losses: rtol 1e-5 (float32 sums in another order);
 - fp32 gradients, per parameter: max|port - JAX| <= 1e-4 * max|JAX| +
@@ -33,7 +41,17 @@ Tolerances:
 - bf16 gradients: at this size a bf16 backward lands 5-50% (relative L2)
   from the fp32 gradient in both packages, so each parameter's port bf16
   gradient is held to at most twice JAX's bf16 distance from JAX's fp32
-  gradient, plus 1e-3.
+  gradient, plus 1e-3;
+- bf16 with freeze_bn_stats, where flax promotes the trunk after the root
+  conv to fp32 (the moving statistics are fp32): the losses within rtol
+  2e-5, atol 1e-5 of JAX's bf16 step (the port measured 2.2e-6 on e_loss;
+  with its trunk left in bf16 it was 1.0e-4, and 1.3e-4 on e_kp); the
+  gradients by the bf16 rule above applied to each model's whole gradient
+  as one vector (the port 0.00778 from fp32, JAX 0.00776), not tensor by
+  tensor: the only bf16 roundings left are the root conv's output and the
+  gradients, and the narrow trunk's last unit, at 2x2 pixels, sits behind
+  a few ReLUs whose sign such a rounding flips (its conv1 gradient: the
+  port 0.178 from fp32, JAX 0.074, the port 0.153 from JAX's bf16).
 """
 
 import dataclasses
@@ -63,6 +81,7 @@ from human_dynamics_tpu_torch.utils.weights import (
     variable_map,
 )
 from tests.test_torch_train_image import NARROW, randomise
+from tests.torch_mesh_worker import run_group
 
 torch.set_num_threads(1)
 
@@ -72,6 +91,7 @@ STATS_TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_STATS_FLOOR = 1e-5
 BF16_LOSS_RTOL, BF16_LOSS_ATOL = 2e-3, 1e-5
 BF16_GRAD_FACTOR, BF16_GRAD_FLOOR = 2.0, 1e-3
+FREEZE_BF16_LOSS_RTOL = 2e-5
 # XLA's backend optimisation level for the JAX programs.
 FAST_COMPILE = {"xla_backend_optimization_level": 0}
 DIMS = dict(batch_size=2, T=8, img_size=32, precomputed_phi=False,
@@ -138,7 +158,8 @@ def _port_state(config, trees):
 @pytest.fixture(scope="module")
 def setup(narrow_resnet):
     """Randomised weights, a batch, and the JAX losses, gradients and
-    updated statistics of one train-mode step in fp32 and in bf16."""
+    updated statistics of one train-mode step in fp32 and in bf16, with
+    batch statistics and with ``freeze_bn_stats``."""
     config = Config(**DIMS)
     state = PT.create_train_state(config, "cpu",
                                   torch.Generator().manual_seed(1))
@@ -154,12 +175,14 @@ def setup(narrow_resnet):
 
     args = (trees["e"]["params"], trees["d"]["params"])
     jax_out = {}
-    for bf16 in (False, True):
-        c = JaxConfig(**DIMS, use_bfloat16=bf16)
+    for bf16, freeze_bn in ((False, False), (True, False), (False, True),
+                            (True, True)):
+        c = JaxConfig(**DIMS, use_bfloat16=bf16, freeze_bn_stats=freeze_bn)
+        model = dataclasses.replace(hmmr, freeze_bn_stats=freeze_bn)
 
-        def total(a, b):
+        def total(a, b, c=c, model=model):
             e, d, m = JT.compute_losses(
-                c, hmmr, disc, smpl_j,
+                c, model, disc, smpl_j,
                 {"params": a, "batch_stats": trees["e"]["batch_stats"]},
                 {"params": b}, jbatch, train=True)
             return e + d, m
@@ -167,7 +190,7 @@ def setup(narrow_resnet):
         step = jax.jit(jax.grad(total, argnums=(0, 1), has_aux=True))
         (ge, gd), m = step.lower(*args).compile(FAST_COMPILE)(*args)
         stats = m.pop("_new_batch_stats")
-        jax_out[bf16] = dict(
+        jax_out[bf16, freeze_bn] = dict(
             losses={k: float(v) for k, v in m.items()},
             ge=jax.tree_util.tree_map(np.asarray, ge),
             gd=jax.tree_util.tree_map(np.asarray, gd),
@@ -181,12 +204,22 @@ def _rel_l2(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def _check_grads(module, jax_out, got, bf16, part):
+def _check_grads(module, jax_out, got, bf16, part, freeze_bn=False):
     names = list(got)
-    tree = lambda k: jax_to_port(module, {"params": jax_out[k][part]},
-                                 names, strict=False)
+    tree = lambda k: jax_to_port(module, {"params": jax_out[k, freeze_bn][
+        part]}, names, strict=False)
     want32 = tree(False)
     want16 = tree(True) if bf16 else None
+    if bf16 and freeze_bn:
+        # The module's whole gradient as one vector (see the docstring).
+        flat = lambda d: np.concatenate([np.asarray(d[n]).ravel()
+                                         for n in names])
+        w = flat(want32)
+        jax_dist = _rel_l2(flat(want16), w)
+        dist = _rel_l2(flat({n: g.numpy() for n, g in got.items()}), w)
+        assert dist <= BF16_GRAD_FACTOR * jax_dist + BF16_GRAD_FLOOR, (
+            f"{part}: port bf16 {dist} from fp32, JAX bf16 {jax_dist}")
+        return
     for name, g in got.items():
         g, w = g.numpy(), want32[name].numpy()
         if bf16:
@@ -200,14 +233,47 @@ def _check_grads(module, jax_out, got, bf16, part):
                 f"{name}: {err} vs {GRAD_REL} * {np.abs(w).max()}")
 
 
-@pytest.mark.parametrize("freeze_phi,bf16", [
-    (False, False), (True, False), (False, True)],
-    ids=["unfrozen", "freeze_phi", "unfrozen_bf16"])
-def test_compute_losses_match_jax(setup, freeze_phi, bf16):
+def _check_against_jax(setup, metrics, ge, gd, got_stats, bf16,
+                       freeze_bn=False):
+    """Losses, gradients (by port name, of the HMMR model and the
+    discriminator) and the moving averages (by flax path) of one step
+    against JAX's."""
+    want = setup["jax_out"][bf16, freeze_bn]
+    assert set(metrics) == set(want["losses"])
+    tol = (dict(rtol=LOSS_RTOL) if not bf16 else
+           dict(rtol=FREEZE_BF16_LOSS_RTOL, atol=BF16_LOSS_ATOL) if freeze_bn
+           else dict(rtol=BF16_LOSS_RTOL, atol=BF16_LOSS_ATOL))
+    for k, w in want["losses"].items():
+        np.testing.assert_allclose(float(metrics[k]), w, err_msg=k, **tol)
+    hmmr = _port_state(Config(**DIMS), setup["trees"])
+    _check_grads(hmmr.hmmr, setup["jax_out"], ge, bf16, "ge", freeze_bn)
+    _check_grads(hmmr.disc, setup["jax_out"], gd, bf16, "gd", freeze_bn)
+    assert set(got_stats) == set(want["stats"])
+    stats32 = setup["jax_out"][False, freeze_bn]["stats"]
+    for k, w in want["stats"].items():
+        if bf16:
+            jax_dist = np.abs(w - stats32[k]).max()
+            dist = np.abs(got_stats[k] - stats32[k]).max()
+            assert dist <= BF16_GRAD_FACTOR * jax_dist + BF16_STATS_FLOOR, (
+                k, dist, jax_dist)
+        else:
+            np.testing.assert_allclose(got_stats[k], w, err_msg=k,
+                                       **STATS_TOL)
+
+
+@pytest.mark.parametrize("freeze_phi,bf16,freeze_bn", [
+    (False, False, False), (True, False, False), (False, True, False),
+    (False, False, True), (False, True, True)],
+    ids=["unfrozen", "freeze_phi", "unfrozen_bf16", "freeze_bn_stats",
+         "freeze_bn_stats_bf16"])
+def test_compute_losses_match_jax(setup, freeze_phi, bf16, freeze_bn):
     """compute_losses(train=True) in image mode: every loss, the gradient
     of every trainable parameter (with freeze_phi no ResNet parameter takes
-    one) and every updated moving average against JAX's step."""
-    config = Config(**DIMS, freeze_phi=freeze_phi, use_bfloat16=bf16)
+    one) and every updated moving average against JAX's step. With
+    freeze_bn_stats in bf16 the trunk after the root conv computes in fp32,
+    as flax promotes it."""
+    config = Config(**DIMS, freeze_phi=freeze_phi, use_bfloat16=bf16,
+                    freeze_bn_stats=freeze_bn)
     st = _port_state(config, setup["trees"])
     _without_dropout(st.hmmr)
     e, d, metrics = PT.compute_losses(config, st.hmmr, st.disc,
@@ -223,28 +289,10 @@ def test_compute_losses_match_jax(setup, freeze_phi, bf16):
     n_resnet = sum(n.startswith("resnet_v2_50.") for n in ge)
     assert n_resnet == (0 if freeze_phi else
                         len(list(st.hmmr.resnet_v2_50.parameters())))
-
-    want = setup["jax_out"][bf16]
-    assert set(metrics) == set(want["losses"])
-    tol = (dict(rtol=BF16_LOSS_RTOL, atol=BF16_LOSS_ATOL) if bf16
-           else dict(rtol=LOSS_RTOL))
-    for k, w in want["losses"].items():
-        np.testing.assert_allclose(float(metrics[k].detach()), w, err_msg=k,
-                                   **tol)
-    _check_grads(st.hmmr, setup["jax_out"], ge, bf16, "ge")
-    _check_grads(st.disc, setup["jax_out"], gd, bf16, "gd")
-    got_stats = flatten_tree(export_jax_variables(st.hmmr)["batch_stats"])
-    assert set(got_stats) == set(want["stats"])
-    stats32 = setup["jax_out"][False]["stats"]
-    for k, w in want["stats"].items():
-        if bf16:
-            jax_dist = np.abs(w - stats32[k]).max()
-            dist = np.abs(got_stats[k] - stats32[k]).max()
-            assert dist <= BF16_GRAD_FACTOR * jax_dist + BF16_STATS_FLOOR, (
-                k, dist, jax_dist)
-        else:
-            np.testing.assert_allclose(got_stats[k], w, err_msg=k,
-                                       **STATS_TOL)
+    _check_against_jax(
+        setup, {k: v.detach() for k, v in metrics.items()}, ge, gd,
+        flatten_tree(export_jax_variables(st.hmmr)["batch_stats"]), bf16,
+        freeze_bn)
 
 
 def test_freeze_bn_stats_uses_moving_statistics(setup):
@@ -307,3 +355,85 @@ def test_split_frozen_params_matches_jax(setup, kw):
     moved = [n for n, b in tr.state.hmmr.named_buffers()
              if not torch.equal(b, stats[n])]
     assert len(moved) == len(stats)
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel step
+# ---------------------------------------------------------------------------
+
+_DP_CASES = {
+    "unfrozen": dict(freeze_phi=False),
+    "freeze_phi": dict(freeze_phi=True),
+    "unfrozen_bf16": dict(freeze_phi=False, use_bfloat16=True),
+    "unfrozen_remat": dict(freeze_phi=False, remat_resnet=True),
+}
+
+
+def _dp_case(steps=1, dropout=False, **kw):
+    return ("train", dict(config=dict(DIMS, **kw), num_kps=DIMS["num_kps"],
+                          blocks=NARROW, state="main", batch="main",
+                          steps=steps, dropout=dropout))
+
+
+@pytest.fixture(scope="module")
+def dp_groups(setup, tmp_path_factory):
+    """world -> each rank's results: at W=2 one step of each _DP_CASES
+    configuration without dropout; at W=1 two bf16 steps with dropout."""
+    st = _port_state(Config(**DIMS), setup["trees"])
+    payload = {
+        "states": {"main": (st.hmmr.state_dict(), st.disc.state_dict())},
+        "batches": {"main": {k: torch.from_numpy(v)
+                             for k, v in setup["arrays"].items()}},
+        "inputs": {},
+    }
+    cases = {
+        1: [("world1", *_dp_case(steps=2, dropout=True, freeze_phi=False,
+                                 use_bfloat16=True))],
+        2: [(name, *_dp_case(**kw)) for name, kw in _DP_CASES.items()],
+    }
+    return {w: run_group(tmp_path_factory.mktemp(f"image_dp{w}"), w,
+                         dict(payload, cases=c)) for w, c in cases.items()}
+
+
+@pytest.mark.parametrize("case", list(_DP_CASES))
+def test_dp_step_matches_jax(setup, dp_groups, case):
+    """Two ranks, one tube each: the global losses, the summed gradients
+    of every trainable parameter and every moving average (statistics of
+    both ranks' frames) against JAX's step on the whole batch; every rank
+    ends with rank 0's parameters, moments and moving averages."""
+    ranks = dp_groups[2]
+    for r in ranks[1:]:
+        for k, v in ranks[0][case]["state"].items():
+            assert torch.equal(r[case]["state"][k], v), k
+    got = ranks[0][case]
+    grads = got["grads"][0]
+    ge = {n[2:]: g for n, g in grads.items() if n.startswith("e.")}
+    gd = {n[2:]: g for n, g in grads.items() if n.startswith("d.")}
+    assert (not any(n.startswith("resnet_v2_50.") for n in ge)) == (
+        case == "freeze_phi")
+    model = _port_state(Config(**DIMS), setup["trees"]).hmmr
+    model.load_state_dict({n[2:]: v for n, v in got["state"].items()
+                           if n.startswith("e.") and ":" not in n})
+    _check_against_jax(
+        setup, got["metrics"][0], ge, gd,
+        flatten_tree(export_jax_variables(model)["batch_stats"]),
+        _DP_CASES[case].get("use_bfloat16", False))
+
+
+def test_world1_mesh_step_equals_single_process(setup, dp_groups):
+    """Trainer(mesh=make_mesh(1)), bf16 with the trunk trained and dropout
+    on: two steps give the single-process Trainer's losses and state
+    exactly (every collective of one rank is the identity)."""
+    config = Config(**DIMS, freeze_phi=False, use_bfloat16=True)
+    tr = PT.Trainer(config, setup["smpl"], device="cpu")
+    load_jax_variables(tr.state.hmmr, setup["trees"]["e"])
+    load_jax_variables(tr.state.disc, setup["trees"]["d"])
+    batch = _port_batch(setup["arrays"])
+    want = [{k: float(v) for k, v in tr.step(batch).items()}
+            for _ in range(2)]
+    got = dp_groups[1][0]["world1"]
+    assert got["metrics"] == want
+    for tag, module in (("e.", tr.state.hmmr), ("d.", tr.state.disc)):
+        for n, t in list(module.named_parameters()) + list(
+                module.named_buffers()):
+            assert torch.equal(got["state"][tag + n], t), n

@@ -132,6 +132,86 @@ def _serve(payload, args, mesh, rank):
     return out
 
 
+def _train_batch(arrays, mesh):
+    """This rank's block of a global train Batch (numpy or tensors)."""
+    from human_dynamics_tpu_torch import parallel
+    from human_dynamics_tpu_torch.train.trainer import Batch
+
+    return parallel.shard_batch(Batch(**arrays), mesh)
+
+
+def _trainer_state(tr):
+    """A Trainer's parameters, moving averages and Adam moments by name."""
+    st = tr.state
+    out = {}
+    for tag, module, opt in (("e", st.hmmr, st.opt_e), ("d", st.disc,
+                                                         st.opt_d)):
+        for n, p in module.named_parameters():
+            out[f"{tag}.{n}"] = p
+            for key in ("exp_avg", "exp_avg_sq"):
+                if p in opt.state:
+                    out[f"{tag}.{n}:{key}"] = opt.state[p][key]
+        for n, b in module.named_buffers():
+            out[f"{tag}.{n}"] = b
+    return out
+
+
+def _train(payload, args, mesh):
+    """A data-parallel Trainer on ``mesh`` from the payload's weights,
+    ``steps`` steps on this rank's block of the global batch; returns the
+    metrics of each step, the summed gradients of each (rank 0 only) and
+    the state after the last. ``blocks`` builds a narrow ResNet; ``dropout`` False
+    evaluates the heads without dropout, as the JAX comparisons do."""
+    import functools
+
+    from human_dynamics_tpu_torch.core import synthetic_smpl_model
+    from human_dynamics_tpu_torch.models import hmmr as PH
+    from human_dynamics_tpu_torch.models import resnet as PR
+    from human_dynamics_tpu_torch.train.trainer import Trainer
+    from human_dynamics_tpu_torch.utils.config import Config
+
+    resnet = PH.ResNetV2_50
+    if "blocks" in args:
+        PH.ResNetV2_50 = functools.partial(PR.ResNetV2_50,
+                                           blocks=args["blocks"])
+    try:
+        tr = Trainer(Config(**args["config"]),
+                     synthetic_smpl_model(num_verts=32,
+                                          num_kps=args["num_kps"]),
+                     device="cpu", mesh=mesh)
+    finally:
+        PH.ResNetV2_50 = resnet
+    state_e, state_d = payload["states"][args["state"]]
+    tr.state.hmmr.load_state_dict(state_e)
+    tr.state.disc.load_state_dict(state_d)
+    if not args.get("dropout", True):
+        heads = tr.state.hmmr._pred_heads
+        tr.state.hmmr._pred_heads = lambda f, with_deltas, train, g: heads(
+            f, with_deltas, False, None)
+    batch = _train_batch(payload["batches"][args["batch"]], mesh)
+    metrics, grads = [], []
+    for _ in range(args.get("steps", 1)):
+        metrics.append({k: float(v) for k, v in tr.step(batch).items()})
+        if mesh.rank == 0:
+            grads.append({n: p.grad.clone()
+                          for n, p in _trainer_state(tr).items()
+                          if getattr(p, "grad", None) is not None})
+    return {"metrics": metrics, "grads": grads, "state": _trainer_state(tr)}
+
+
+def _train_main(args, rank):
+    """train.main on this rank with the group already joined; returns
+    what it trained and the files of its model directory."""
+    from human_dynamics_tpu_torch.parallel.mesh import barrier
+    from human_dynamics_tpu_torch.train import main as train_main
+
+    tr = train_main.main(args["argv"])
+    barrier(tr.mesh)
+    return {"step": tr.state.step, "state": _trainer_state(tr),
+            "files": sorted(os.listdir(tr.config.model_dir)),
+            "lead": tr.is_lead}
+
+
 def run_case(kind, args, payload, rank, world):
     from human_dynamics_tpu_torch import parallel
     from human_dynamics_tpu_torch.parallel import halo
@@ -183,6 +263,29 @@ def run_case(kind, args, payload, rank, world):
     if kind == "serve":
         mesh = parallel.make_mesh(world, "data", device="cpu")
         return _serve(payload, args, mesh, rank)
+    if kind == "train":
+        return _train(payload, args,
+                      parallel.make_mesh(world, "data", device="cpu"))
+    if kind == "trainer_init":
+        # Every rank initialises from its own seed; the Trainer holds rank
+        # 0's state everywhere. A batch the world does not divide raises.
+        from human_dynamics_tpu_torch.core import synthetic_smpl_model
+        from human_dynamics_tpu_torch.train.trainer import Trainer
+        from human_dynamics_tpu_torch.utils.config import Config
+
+        mesh = parallel.make_mesh(world, "data", device="cpu")
+        smpl = synthetic_smpl_model(num_verts=32, num_kps=args["num_kps"])
+        tr = Trainer(Config(**dict(args["config"], seed=rank)), smpl,
+                     device="cpu", mesh=mesh)
+        try:
+            Trainer(Config(**dict(args["config"], batch_size=world + 1)),
+                    smpl, device="cpu", mesh=mesh)
+            error = ""
+        except ValueError as e:
+            error = str(e)
+        return {"state": _trainer_state(tr), "error": error}
+    if kind == "train_main":
+        return _train_main(args, rank)
     raise ValueError(f"unknown case kind {kind!r}")
 
 
