@@ -142,6 +142,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the card (the HD_TPU_* variables, --backend gloo) for 3 steps on phi
    records written here (2 shards per dataset), rank 0 writing the one
    checkpoint, which a single-process Trainer restores.
+16. The video demo (infer.demo) on in-memory uint8 frames, at full width
+   (the phase-2 model, synthetic_smpl_model(6890, 25), B=8, T=20): a
+   PoseFlow JSON of one person walking through 240 frames of 720x1280,
+   missing in 3 of them. preprocess_track on the card against the CPU
+   (float32 crops within 2^-23, the float64 resize of 3 frames within
+   1e-9, start points and shapes equal);
+   predict_on_tracks with the demo's fp32 predictor and its --fast one
+   (bf16 encoder, fused SMPL), in turns: K1 once per --fast track and
+   never for fp32, the pkl's keys, shapes and dtypes those of the JAX
+   demo, a rerun reusing the pkl; the fp32 omegas of a 40-frame track
+   within 1e-5 of the same call on the CPU; the native rasterizer against
+   its numpy plain version on a crop, an original-frame and a rotated
+   panel of a UV sphere of 6890 vertices and 13776 faces (masks equal, RGB
+   within 1e-5), each timed on the host; where cv2 is importable,
+   render_preds and make_video on the 40-frame track (the sphere in place
+   of the synthetic SMPL's vertices); K1 at the track's N against its
+   plain version and timed.
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -264,6 +281,24 @@ DP_WORLD1_RTOL, DP_WORLD1_STATE_REL, DP_WORLD1_GRAD_REL = 1e-6, 1e-5, 1e-4
 DP_LOSS_RTOL = 1e-5
 DP_BF16_LOSS_RTOL = 2e-3
 DP_BF16_GRAD_FACTOR, DP_BF16_GRAD_FLOOR = 2.0, 1e-3
+# Phase 16: the demo. One person walking through DEMO_FRAMES frames of
+# DEMO_H x DEMO_W, not detected in DEMO_MISSING (interpolated bboxes). The
+# card's float32 crops against the CPU's within a float32 ulp at 1 (the
+# float64 arithmetic, summed in other orders on the two devices, may round
+# to either neighbour), and the float64 resize within DEMO_CROP_TOL
+# (cv2.resize is matched to a few float64 ulps by F.interpolate); the
+# fp32 omegas of a DEMO_SHORT-frame track against the same call on the CPU
+# (phase 11 measured 7.2e-7 for the predictor). The renders use a UV sphere
+# of RENDER_SPHERE (latitude rings + 1, longitudes): 6890 vertices and 13776
+# faces, SMPL's counts, each face local to the surface.
+DEMO_FRAMES, DEMO_H, DEMO_W = 240, 720, 1280
+DEMO_MISSING = (31, 32, 150)
+DEMO_SHORT = 40
+DEMO_CROP_TOL, DEMO_OMEGA_TOL = 1e-9, 1e-5
+DEMO_CROP32_TOL = 2.0 ** -23
+RENDER_SPHERE = (85, 82)
+RENDER_RGB_TOL = 1e-5
+N_RENDER_TIMED = 3
 PROFILE = "--profile" in sys.argv[1:]
 TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
 
@@ -2915,6 +2950,324 @@ def phase_dp(torch, np, dev, smpl, K, smpl_cuda, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the demo
+# ---------------------------------------------------------------------------
+
+
+def demo_person(np, i):
+    """25 PoseFlow keypoints (x, y, score) of a person ~300 px tall walking
+    right across a DEMO_W-wide frame."""
+    kps = np.zeros((SMPL_KPS, 3))
+    kps[:, 0] = 200 + 3.5 * i + np.linspace(-60, 60, SMPL_KPS)
+    kps[:, 1] = DEMO_H / 2 + np.linspace(-150, 150, SMPL_KPS)
+    kps[:, 2] = 0.9
+    return kps
+
+
+def write_demo_track(np, path, n):
+    """A PoseFlow tracked JSON of one person over n frames."""
+    data = {f"frame{i:06d}.png": (
+        [] if i in DEMO_MISSING
+        else [{"keypoints": demo_person(np, i).ravel().tolist(), "idx": 0}])
+        for i in range(n)}
+    with open(path, "w") as f:
+        json.dump(data, f)
+    return path
+
+
+def demo_schema(n):
+    """Keys, shapes and dtypes of the JAX demo's hmmr_output.pkl for an
+    n-frame track (two delta heads)."""
+    per = {"cams": (3,), "joints": (SMPL_KPS, 3), "kps": (SMPL_KPS, 2),
+           "poses": (24, 3, 3), "shapes": (10,), "verts": (SMPL_VERTS, 3),
+           "omegas": (85,)}
+    schema = {k: ((n,) + s, "float32") for k, s in per.items()}
+    schema.update({k + "_delta": ((n, 2) + s, "float32")
+                   for k, s in per.items()})
+    schema["frame_range"] = ((2,), "int64")
+    return schema
+
+
+def check_demo_pkl(np, path, n, what):
+    import pickle
+
+    with open(path, "rb") as f:
+        preds = pickle.load(f)
+    want = demo_schema(n)
+    got = {k: (tuple(v.shape), str(v.dtype)) for k, v in preds.items()}
+    check(got == want and all(type(v) is np.ndarray for v in preds.values()),
+          f"{what}: pkl schema {got} != the JAX demo's {want}")
+    check(all(np.isfinite(v).all() for v in preds.values()),
+          f"{what}: non-finite values in the pkl")
+    return preds
+
+
+def uv_sphere(np, n_lat, n_lon, radius=0.6):
+    """A UV sphere: 2 + (n_lat - 1) * n_lon vertices, 2 * n_lon * (n_lat -
+    1) faces, each spanning a small patch of the surface."""
+    lat = np.linspace(0, np.pi, n_lat + 1)[1:-1]
+    lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    ring = np.stack([np.outer(np.sin(lat), np.cos(lon)),
+                     np.repeat(np.cos(lat)[:, None], n_lon, 1),
+                     np.outer(np.sin(lat), np.sin(lon))], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0, 1, 0]], ring, [[0, -1, 0]]]) * radius
+
+    def idx(i, j):
+        return 1 + i * n_lon + j % n_lon
+
+    faces = [(0, idx(0, j + 1), idx(0, j)) for j in range(n_lon)]
+    for i in range(n_lat - 2):
+        for j in range(n_lon):
+            faces += [(idx(i, j), idx(i, j + 1), idx(i + 1, j + 1)),
+                      (idx(i, j), idx(i + 1, j + 1), idx(i + 1, j))]
+    last = len(verts) - 1
+    faces += [(last, idx(n_lat - 2, j), idx(n_lat - 2, j + 1))
+              for j in range(n_lon)]
+    return verts.astype(np.float32), np.asarray(faces, np.int32)
+
+
+def demo_renders(np, proc_info, frame, card):
+    """The native rasterizer against its numpy plain version on the three
+    panels the demo renders without cv2: the crop, the original frame
+    (orig_view, at most 300 px) and the rotated view; ms per render on the
+    host."""
+    from human_dynamics_tpu_torch.viz import renderer as R
+    from human_dynamics_tpu_torch.viz.composite import orig_view
+
+    verts, faces = uv_sphere(np, *RENDER_SPHERE)
+    check((len(verts), len(faces)) == (6890, 13776),
+          f"render mesh {len(verts)} verts, {len(faces)} faces")
+    cam = np.array([0.9, 0.02, -0.05], np.float32)
+    kps = np.zeros((SMPL_KPS, 2), np.float32)
+    orig = ((frame / 255.0) - 0.5) * 2
+    img, _, _, orig_cam = orig_view(
+        cam, kps, proc_info["start_pt"], proc_info["scale"],
+        proc_info["im_shape"], orig)
+    rot = R.rodrigues(np.deg2rad(90) * np.array([0, 1.0, 0]))
+    center = verts.mean(axis=0, keepdims=True)
+    rotated = ((verts - center) @ rot.T + center).astype(np.float32)
+    panels = {"crop 224": (verts, cam, IMG),
+              f"original {img.shape[0]}": (verts, orig_cam, img.shape[0]),
+              "rotated 224": (rotated, cam, IMG)}
+    color = np.asarray(R.MESH_COLORS["blue"], np.float32)
+    renderer = R.VisRenderer(img_size=IMG, faces=faces)
+    t0 = time.perf_counter()
+    R.load_library()
+    print(f"demo render: the C++ rasterizer built or loaded in "
+          f"{time.perf_counter() - t0:.2f} s -> "
+          f"{os.path.relpath(R.library_path(), HERE)}")
+    out = {}
+    for name, (v, c, size) in panels.items():
+        proj = renderer._project(v, c)
+        args = (proj, faces, size, color, renderer.light_dir,
+                renderer.int_dir, renderer.int_amb)
+        times = {}
+        for fn, reps in ((R.rasterize_native, N_RENDER_TIMED),
+                         (R.rasterize_numpy, 1)):
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                res = fn(*args)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times[fn.__name__] = (min(ts), res)
+        (n_ms, (rgb, mask)), (p_ms, (prgb, pmask)) = times.values()
+        covered = int(mask.sum())
+        err = float(np.abs(rgb - prgb).max())
+        print(f"demo render {name}: native vs numpy masks "
+              f"{'equal' if np.array_equal(mask, pmask) else 'DIFFER'} "
+              f"({covered} px covered), rgb max abs {err:.3e} (tol "
+              f"{RENDER_RGB_TOL:g}); host time [{card}] native {n_ms:.2f} ms, "
+              f"numpy {p_ms:.2f} ms per render (native best of "
+              f"{N_RENDER_TIMED}, numpy once)")
+        check(covered > 0 and np.array_equal(mask, pmask)
+              and err <= RENDER_RGB_TOL,
+              f"demo render {name}: native differs from numpy")
+        out[name] = {"native_ms": n_ms, "numpy_ms": p_ms}
+    return out
+
+
+def demo_video(np, preds, images, infos, frames, out_dir, card):
+    """render_preds (the 2x2 composite: mesh on the crop, mesh in the
+    original frame, skeleton, rotated mesh) and make_video on a track's
+    predictions, with the UV sphere in place of each frame's vertices: the
+    synthetic SMPL's random faces each span the whole panel. Returns ms per
+    rendered frame, host time."""
+    from human_dynamics_tpu_torch.infer import demo
+
+    verts, faces = uv_sphere(np, *RENDER_SPHERE)
+    preds = dict(preds, verts=np.broadcast_to(verts, (len(images),)
+                                              + verts.shape))
+    t0 = time.perf_counter()
+    mp4 = demo.render_preds(out_dir, preds, images, infos, faces,
+                            orig_frames=frames)
+    ms = (time.perf_counter() - t0) * 1e3 / len(images)
+    size = os.path.getsize(mp4)
+    print(f"demo render_preds + make_video [{card}], host: {len(images)} "
+          f"frames of 448x448 -> {os.path.basename(mp4)} ({size} bytes), "
+          f"{ms:.2f} ms per frame")
+    check(size > 1000, f"demo video {mp4} has {size} bytes")
+    return ms
+
+
+def phase_demo(torch, np, dev, model, smpl, K, smpl_cuda, card):
+    """Phase 16: the demo on in-memory uint8 frames (the card's machine has
+    no cv2 to decode PNGs): crops, the fp32 and --fast predictors through
+    predict_on_tracks, the pkl, and the native rasterizer."""
+    import copy
+    import importlib.util
+    import tempfile
+
+    from human_dynamics_tpu_torch.infer import HmmrPredictor, WindowSchedule
+    from human_dynamics_tpu_torch.infer import demo
+    from human_dynamics_tpu_torch.infer.crop import resize_img
+    from human_dynamics_tpu_torch.infer.tracks import get_labels_poseflow
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(16)
+    base = rng.randint(0, 256, (DEMO_H, DEMO_W + DEMO_FRAMES, 3),
+                       dtype=np.uint8)
+    frames = [np.ascontiguousarray(base[:, i:i + DEMO_W])
+              for i in range(DEMO_FRAMES)]
+    b, t = 8, 20
+    kw = dict(batch_size=b, seq_length=t, device=dev)
+    fp32 = HmmrPredictor(model, None, smpl, **kw)
+    fast = HmmrPredictor(model, None, smpl, use_fused_smpl=True,
+                         bf16_encoder=True, **kw)
+    heads = 1 + sum(1 for dt in model.delta_t_values if dt != 0)
+    sched = WindowSchedule(DEMO_FRAMES, b, t, model.fov)
+    demo_n = sched.count * b * sched.good_frames * heads
+    out = {"n": demo_n}
+    with tempfile.TemporaryDirectory() as tmp:
+        track = write_demo_track(np, os.path.join(tmp, "tracked.json"),
+                                 DEMO_FRAMES)
+        kps = get_labels_poseflow(track, DEMO_FRAMES)[0]
+        check(sum(k is None for k in kps)
+              == sum(i < DEMO_FRAMES for i in DEMO_MISSING),
+              "demo track: missing detections not read as gaps")
+
+        # Crops: the card against the CPU, the float32 crops and the
+        # float64 resize they are cut from.
+        got, infos, rng_f = demo.preprocess_track(frames, kps, device=dev)
+        want, want_infos, want_f = demo.preprocess_track(frames, kps,
+                                                         device="cpu")
+        err = max_abs(got.cpu(), want)
+        same_meta = rng_f == want_f and all(
+            a["im_shape"] == w["im_shape"]
+            and np.array_equal(a["start_pt"], w["start_pt"])
+            for a, w in zip(infos, want_infos))
+        err64 = 0.0
+        for i in (0, len(infos) // 2, len(infos) - 1):
+            frame, scale = frames[rng_f[0] + i], infos[i]["scale"]
+            card64 = resize_img(torch.as_tensor(frame, device=dev), scale)[0]
+            cpu64 = torch.as_tensor(resize_img(frame, scale)[0])
+            err64 = max(err64, float((card64.cpu() - cpu64).abs().max()))
+        print(f"demo crops, {len(got)} frames of {DEMO_H}x{DEMO_W}, bbox "
+              f"scale {infos[0]['scale']:.3f}-{infos[-1]['scale']:.3f}: card "
+              f"vs CPU float32 crops max abs {err:.3e} (tol "
+              f"{DEMO_CROP32_TOL:g}), float64 resize of 3 frames {err64:.3e} "
+              f"(tol {DEMO_CROP_TOL:g}), start_pt and im_shape "
+              f"{'equal' if same_meta else 'DIFFER'}")
+        check(err <= DEMO_CROP32_TOL and err64 <= DEMO_CROP_TOL and same_meta
+              and len(got) == DEMO_FRAMES,
+              "demo crops: card differs from the CPU")
+        del got, want
+
+        # The fp32 and --fast predictors on the whole track, in turns; each
+        # run writes its own pkl, then a rerun loads it.
+        walls = {"crops": [], "fp32": [], "fast": []}
+        launches = []
+        for rep, name in enumerate(("fp32", "fast", "fast", "fp32")):
+            pred = fp32 if name == "fp32" else fast
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            demo.preprocess_track(frames, kps, device=dev)
+            torch.cuda.synchronize()
+            walls["crops"].append((time.perf_counter() - t0) * 1e3)
+            out_dir = os.path.join(tmp, f"{name}{rep}")
+            reset_all(K, smpl_cuda)
+            t0 = time.perf_counter()
+            preds, images, _, path = demo.predict_on_tracks(
+                pred, frames, track, out_dir)
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            counts, _ = read_counts(K, smpl_cuda)
+            k1 = counts.pop(smpl_cuda.KERNEL_NAME)
+            check(k1 == (1 if name == "fast" else 0)
+                  and not any(counts.values()),
+                  f"demo {name}: launches K1 {k1}, {counts}: want K1 once "
+                  f"per --fast track and never for fp32")
+            if name == "fast":
+                launches.append(k1)
+            check_demo_pkl(np, os.path.join(path, "hmmr_output.pkl"),
+                           DEMO_FRAMES, f"demo {name}")
+            again = demo.predict_on_tracks(pred, frames, track, out_dir)[0]
+            check(all(np.array_equal(again[k], preds[k]) for k in preds),
+                  f"demo {name}: the rerun did not reuse the pkl")
+        print(f"demo: K1 launched {launches} on the --fast tracks of "
+              f"{DEMO_FRAMES} frames (N = {demo_n}), 0 on fp32; pkl keys, "
+              f"shapes and dtypes equal the JAX demo's; reruns reuse the pkl")
+        print(f"demo timing [{card}], ms per {DEMO_FRAMES}-frame track in "
+              f"turns fp32, fast, fast, fp32: crops on the device "
+              f"{', '.join(f'{w:.2f}' for w in walls['crops'])}; "
+              f"predict_on_tracks (crops, prediction, pkl) fp32 "
+              f"{', '.join(f'{w:.2f}' for w in walls['fp32'])}, --fast "
+              f"{', '.join(f'{w:.2f}' for w in walls['fast'])}")
+        out.update(launches=sum(launches), tracks=len(launches),
+                   crops_ms=min(walls["crops"]), fp32_ms=min(walls["fp32"]),
+                   fast_ms=min(walls["fast"]))
+
+        # The fp32 omegas of a short track against the same call on the
+        # CPU (a copy of the model).
+        short = write_demo_track(np, os.path.join(tmp, "short.json"),
+                                 DEMO_SHORT)
+        cpu = HmmrPredictor(copy.deepcopy(model).to("cpu"), None,
+                            smpl.to("cpu"), batch_size=b, seq_length=t,
+                            device="cpu")
+        t0 = time.perf_counter()
+        ref = demo.predict_on_tracks(cpu, frames[:DEMO_SHORT], short,
+                                     os.path.join(tmp, "short_cpu"))[0]
+        cpu_s = time.perf_counter() - t0
+        card_preds, images, short_infos, short_out = demo.predict_on_tracks(
+            fp32, frames[:DEMO_SHORT], short, os.path.join(tmp, "short_card"))
+        errs = {k: float(np.abs(card_preds[k] - ref[k]).max())
+                for k in ("omegas", "joints", "verts")}
+        print(f"demo fp32, {DEMO_SHORT}-frame track, card vs CPU "
+              f"({cpu_s:.1f} s on the CPU): " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (omegas tol {DEMO_OMEGA_TOL:g})")
+        check(errs["omegas"] <= DEMO_OMEGA_TOL,
+              f"demo fp32 omegas card vs CPU {errs['omegas']}")
+        out["omega_err"] = errs["omegas"]
+        del cpu
+        out["render"] = demo_renders(np, infos[0], frames[0], card)
+        if importlib.util.find_spec("cv2") is None:
+            print("demo: render_preds and make_video not driven: they draw "
+                  "the skeleton panel and write PNG frames with cv2, which "
+                  "this machine lacks; tests/test_torch_demo.py drives them "
+                  "against the JAX demo on the CPU")
+        else:
+            out["video_ms"] = demo_video(np, card_preds, images, short_infos,
+                                         frames[:DEMO_SHORT], short_out, card)
+
+    # K1 at the demo's N against its plain version, and timed.
+    beta = torch.from_numpy(rng.randn(demo_n, 10).astype(np.float32) * 0.3)
+    theta = torch.from_numpy(rng.randn(demo_n, 72).astype(np.float32) * 0.3)
+    ops = k1_operands(smpl, smpl_cuda.prepare_fused_constants(smpl),
+                      beta.to(dev), theta.to(dev))
+    planes = max(max_abs(k, p) for k, p in zip(
+        smpl_cuda.blend_skin(*ops), smpl_cuda.blend_skin_reference(*ops)))
+    check(planes <= K1_PLANES_TOL, f"K1 planes error {planes} at N={demo_n}")
+    k_ms, p_ms = k1_in_turns(torch, ops)
+    bound, by = k1_bound(smpl_cuda, demo_n)[:2]
+    print(f"K1 N={demo_n} V={SMPL_VERTS} (a --fast demo track of "
+          f"{DEMO_FRAMES} frames): planes max|kernel-plain| {planes:.3e}, "
+          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({by})")
+    out.update(k1_err=planes, ms=k_ms, plain_ms=p_ms, bound_ms=bound)
+    print(f"phase 16 (demo): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -3104,6 +3457,9 @@ def main():
     # Phase 15: data-parallel training.
     dp = phase_dp(torch, np, dev, smpl, K, smpl_cuda, card)
 
+    # Phase 16: the demo.
+    dm = phase_demo(torch, np, dev, model, smpl, K, smpl_cuda, card)
+
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [
         dict(name=smpl_cuda.KERNEL_NAME, source=csrc + "smpl_blend_skin.cu",
@@ -3117,7 +3473,10 @@ def main():
              dp_launches=dp["world1"]["launches"],
              dp_steps=dp["world1"]["steps"], dp_rank_n=dp["k1"]["n"],
              dp_ms=dp["k1"]["ms"], dp_plain_ms=dp["k1"]["plain_ms"],
-             dp_bound_ms=dp["k1"]["bound_ms"], **k1),
+             dp_bound_ms=dp["k1"]["bound_ms"], demo_launches=dm["launches"],
+             demo_tracks=dm["tracks"], demo_n=dm["n"], demo_ms=dm["ms"],
+             demo_plain_ms=dm["plain_ms"], demo_bound_ms=dm["bound_ms"],
+             **k1),
         dict(name=K.BLOCK, source=csrc + "resnet_int8.cu",
              replaces="human_dynamics_tpu/ops/resnet_int8_pallas.py:151",
              **int8["k2"]),
@@ -3133,14 +3492,18 @@ def main():
     # K1 also runs on the training paths: its launches over the phase-12
     # steps and the phase-13 timed steps, and its times at a training
     # step's N; on the sharded windowed path (phase 14, world 1, one clip)
-    # at the rank's N; and on the data-parallel step (phase 15: its
+    # at the rank's N; on the data-parallel step (phase 15: its
     # launches over the world-1 DP steps, one per step, and its times at a
-    # rank's N of a two-rank step).
+    # rank's N of a two-rank step); and on the --fast demo (phase 16: its
+    # launches over the --fast tracks, one per track, and its times at the
+    # track's N).
     train_keys = ("train_launches", "train_steps", "train_n", "train_ms",
                   "train_plain_ms", "train_bound_ms", "image_train_launches",
                   "image_train_steps", "sharded_launches", "sharded_n",
                   "dp_launches", "dp_steps", "dp_rank_n", "dp_ms",
-                  "dp_plain_ms", "dp_bound_ms")
+                  "dp_plain_ms", "dp_bound_ms", "demo_launches",
+                  "demo_tracks", "demo_n", "demo_ms", "demo_plain_ms",
+                  "demo_bound_ms")
     print(json.dumps({"kernels": [
         {k: dict(kern, route="cuda")[k] for k in keys
          + tuple(k for k in train_keys if k in kern)} for kern in kernels

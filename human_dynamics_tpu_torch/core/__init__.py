@@ -8,6 +8,7 @@ from human_dynamics_tpu_torch.core.rotations import (
 from human_dynamics_tpu_torch.core.smpl import (
     SmplForward,
     SmplModel,
+    convert_smpl_pkl,
     global_rigid_transformation,
     load_smpl_model,
     smpl_forward,

@@ -9,11 +9,17 @@ Counterpart of ``human_dynamics_tpu/core/smpl.py``:
   grouped by tree depth (SMPL has 8 levels) and each level is one batched
   3x3 product. The levels are collected in Python lists and stacked, so
   autograd follows every step (no in-place writes).
+- ``convert_smpl_pkl`` turns the original SMPL pickle into an npz without
+  chumpy (its objects are unpickled through a stub); ``load_smpl_model``
+  reads the npz or the pickle.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
+import tempfile
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -214,18 +220,92 @@ def smpl_forward(
     return SmplForward(verts, joints, rots, j_posed)
 
 
+def _undo_chumpy(x):
+    """chumpy array -> numpy."""
+    if isinstance(x, np.ndarray):
+        return x
+    if hasattr(x, "r"):
+        return np.asarray(x.r)
+    if hasattr(x, "toarray"):  # scipy sparse
+        return np.asarray(x.toarray())
+    return np.asarray(x)
+
+
+class _ChumpyStub:
+    """Unpickles chumpy objects without chumpy installed.
+
+    chumpy.Ch pickles its ``__dict__``; the wrapped ndarray lives under
+    ``x`` (sometimes ``_data``). Only the raw array is needed.
+    """
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {})
+
+    @property
+    def r(self):
+        for key in ("x", "_data", "a"):
+            val = self.__dict__.get(key)
+            if isinstance(val, np.ndarray):
+                return val
+            if val is not None and hasattr(val, "r"):
+                return val.r
+        raise ValueError("Cannot extract array from chumpy stub")
+
+    @property
+    def shape(self):  # chumpy.Ch exposes the wrapped array's shape
+        return self.r.shape
+
+
+class _SmplUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChumpyStub
+        return super().find_class(module, name)
+
+
+def convert_smpl_pkl(pkl_path: str, npz_path: str) -> None:
+    """One-time conversion of the original SMPL pickle to a plain npz, the
+    same file as the JAX package's ``convert_smpl_pkl`` writes. chumpy
+    objects are unpickled through a stub, so chumpy is not needed."""
+    with open(pkl_path, "rb") as f:
+        dd = _SmplUnpickler(f, encoding="latin1").load()
+
+    num_betas = dd["shapedirs"].shape[-1]
+    out = dict(
+        v_template=_undo_chumpy(dd["v_template"]).astype(np.float32),
+        shapedirs=_undo_chumpy(dd["shapedirs"])
+        .reshape(-1, num_betas).T.astype(np.float32),
+        posedirs=_undo_chumpy(dd["posedirs"])
+        .reshape(-1, NUM_POSE_BASIS).T.astype(np.float32),
+        j_regressor=np.asarray(
+            _undo_chumpy(dd["J_regressor"]).T, dtype=np.float32
+        ),
+        lbs_weights=_undo_chumpy(dd["weights"]).astype(np.float32),
+        cocoplus_regressor=np.asarray(
+            _undo_chumpy(dd["cocoplus_regressor"]).T, dtype=np.float32
+        ),
+        parents=np.asarray(dd["kintree_table"][0], dtype=np.int64),
+        faces=np.asarray(dd["f"], dtype=np.int32) if "f" in dd else None,
+    )
+    np.savez(npz_path, **{k: v for k, v in out.items() if v is not None})
+
+
 def load_smpl_model(
     path: str, joint_type: str = "cocoplus", device=None,
     dtype=torch.float32,
 ) -> SmplModel:
-    """Load an SmplModel from an npz written by the JAX package's
-    ``convert_smpl_pkl``. The pickle route needs chumpy and is not ported:
-    convert the pickle to npz first."""
+    """Load an SmplModel from an npz written by ``convert_smpl_pkl`` (this
+    package's or the JAX package's), or from the original SMPL pickle,
+    converted on the way."""
+    if path.endswith(".pkl"):
+        with tempfile.TemporaryDirectory() as tmp:
+            npz = os.path.join(tmp, "smpl.npz")
+            convert_smpl_pkl(path, npz)
+            return load_smpl_model(npz, joint_type, device, dtype)
     if not path.endswith(".npz"):
         raise ValueError(
-            f"load_smpl_model reads npz only, got {path!r}; convert a "
-            "SMPL pickle with human_dynamics_tpu.core.smpl.convert_smpl_pkl"
-        )
+            f"load_smpl_model reads an npz (convert_smpl_pkl) or the SMPL "
+            f"pkl, got {path!r}")
     with np.load(path, allow_pickle=False) as dd:
         parents = dd["parents"].astype(np.int64)
         parents = tuple(int(p) if p < len(parents) else -1 for p in parents)

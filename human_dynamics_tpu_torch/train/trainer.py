@@ -690,13 +690,63 @@ class Trainer:
     # Summaries
     # ------------------------------------------------------------------
 
+    @torch.no_grad()
     def render_summary(self, batch: Batch, max_frames: int = None):
-        """Rendered prediction strips need the viz package (cv2 and a
-        native renderer), which the port does not have yet."""
-        raise NotImplementedError(
-            "render_summary needs the viz package (cv2 and a native "
-            "renderer), not ported: ROADMAP Queue 1 item 3a (the demo)"
+        """The current predictions for the batch's first tube, rendered as
+        a horizontal strip (img_size, img_size * k, 3) uint8 of the
+        ``max_frames`` (``log_img_count``) middle frames: each panel the
+        mesh on white (the SMPL faces, when the model has them) with the
+        predicted keypoints' skeleton and the visible labelled keypoints
+        over it. The present head is decoded by the fused SMPL kernel with
+        ``use_fused_smpl``. The mesh is rasterized on the host."""
+        from human_dynamics_tpu_torch.viz.renderer import VisRenderer
+        from human_dynamics_tpu_torch.viz.skeleton import (
+            draw_skeleton,
+            normalized_kp_to_image,
         )
+
+        max_frames = max_frames or self.config.log_img_count
+        with full_fp32():
+            out = self.state.hmmr(batch.phis[:1].to(self.device))
+            sm = compute_smpl(
+                self.smpl, out.omega_pred[:1], use_optcam=False,
+                fused=self.config.use_fused_smpl,
+                fused_constants=self.fused_constants,
+            )
+        t = out.omega_pred.shape[1]
+        mid = t // 2
+        idx = range(
+            max(0, mid - max_frames // 2),
+            min(t, mid + (max_frames + 1) // 2),
+        )
+
+        faces = self.smpl.faces
+        img_size = self.config.img_size
+        renderer = (
+            VisRenderer(img_size=img_size, faces=faces)
+            if faces is not None else None
+        )
+        panels = []
+        verts = sm.verts[0].cpu().numpy()
+        kps = sm.kps[0].cpu().numpy()
+        cams = out.omega_pred[0, :, :3].cpu().numpy()
+        gt_kps = batch.kps[0].cpu().numpy()
+        for ti in idx:
+            if renderer is not None:
+                panel = renderer(verts[ti], cam=cams[ti])
+            else:
+                panel = np.full((img_size, img_size, 3), 255, np.uint8)
+            panel = draw_skeleton(
+                panel, normalized_kp_to_image(kps[ti], img_size)
+            )
+            panel = draw_skeleton(
+                panel,
+                normalized_kp_to_image(gt_kps[ti, :, :2], img_size),
+                draw_edges=False,
+                vis=gt_kps[ti, :, 2] > 0,
+            )
+            panels.append(panel)
+        return np.concatenate(panels, axis=1)
 
     @torch.no_grad()
     def histogram_summary(self, batch: Batch) -> None:

@@ -115,7 +115,8 @@ def test_smpl_forward_matches_jax(skip_verts):
 
 def test_load_smpl_model_npz(tmp_path):
     """npz written in the JAX package's convert_smpl_pkl layout, loaded by
-    both packages, with the lsp joint type."""
+    both packages, with the lsp joint type; a file that is neither npz nor
+    the SMPL pkl is refused (the pkl route: tests/test_torch_demo.py)."""
     jm = jsmpl.synthetic_smpl_model(num_verts=64, num_kps=19)
     path = str(tmp_path / "smpl.npz")
     np.savez(
@@ -132,7 +133,7 @@ def test_load_smpl_model_npz(tmp_path):
     np.testing.assert_array_equal(got.joint_regressor.numpy(),
                                   np.asarray(want.joint_regressor))
     with pytest.raises(ValueError, match="npz"):
-        tsmpl.load_smpl_model(str(tmp_path / "smpl.pkl"))
+        tsmpl.load_smpl_model(str(tmp_path / "smpl.h5"))
 
 
 def test_orth_proj_idrot_matches_jax():

@@ -67,6 +67,10 @@ GRAD_REL = 1e-4
 OUT_TOL = dict(rtol=1e-5, atol=1e-5)
 DIMS = dict(batch_size=2, T=20, feature_dim=64, num_kps=19)
 NUM_VERTS = 32
+# render_summary strips with meshes: pixels that may differ from JAX's (a
+# vertex 1e-6 away moves a triangle's edge across a pixel centre; measured
+# 0). Skeleton-only strips must match exactly.
+STRIP_DIFF_PIXELS = 64
 
 
 def _randomise(tree, seed):
@@ -483,9 +487,31 @@ def test_dropout_masks():
         model(torch.zeros(1, 20, 64), train=True)
 
 
+def _jax_strip(jconfig, smpl_j, params_e, arrays, max_frames):
+    """The JAX Trainer's render_summary strip on the given variables (the
+    method on a stand-in Trainer: it reads only these attributes)."""
+    from types import SimpleNamespace
+
+    trainer = SimpleNamespace(
+        config=jconfig, smpl=smpl_j, hmmr=JT.build_models(jconfig)[0],
+        state=SimpleNamespace(params_e=params_e))
+    batch = JT.Batch(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    return JT.Trainer.render_summary(trainer, batch, max_frames)
+
+
+def assert_strips_match(got, want, max_differ=STRIP_DIFF_PIXELS):
+    """Two render_summary strips: the same shape, uint8, and at most
+    ``max_differ`` pixels apart."""
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    differ = int(np.any(got != want, axis=-1).sum())
+    print(f"render_summary strip {got.shape}: {differ} pixels differ")
+    assert differ <= max_differ, differ
+
+
 def test_histogram_summary_and_render(setup, tmp_path):
     """Beta and the 24 discriminator-output histograms land in the logger;
-    render_summary names the missing viz slice."""
+    render_summary's strip equals the JAX Trainer's on the same weights
+    (see STRIP_DIFF_PIXELS)."""
     import csv
 
     logger = MetricLogger(str(tmp_path), use_tensorboard=False)
@@ -498,8 +524,15 @@ def test_histogram_summary_and_render(setup, tmp_path):
     assert {"betas", "betas_hal", "poses_out/all",
             "poses_out/Left_Finger"} <= tags
     assert len([t for t in tags if t.startswith("poses_out/")]) == 24
-    with pytest.raises(NotImplementedError, match="3a"):
-        tr.render_summary(None)
+    batch = _port_batch(setup["arrays"])
+    strip = tr.render_summary(batch, max_frames=4)
+    want = _jax_strip(JaxConfig(**DIMS),
+                      jax_smpl(num_verts=NUM_VERTS, num_kps=DIMS["num_kps"]),
+                      export_jax_variables(tr.state.hmmr), setup["arrays"],
+                      4)
+    assert strip.shape == want.shape == (224, 224 * 4, 3)
+    assert strip.dtype == np.uint8 and strip.min() < 255
+    assert_strips_match(strip, want)
 
 
 def test_config_matches_jax(tmp_path):

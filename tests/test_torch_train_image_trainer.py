@@ -111,11 +111,11 @@ def test_image_checkpoints_cross_packages(setup, tmp_path):
                        tr.state.opt_e.state[q]["exp_avg"])
 
 
-def test_train_main_image_mode(tmp_path):
+def test_train_main_image_mode(setup, tmp_path):
     """train.main on raw_u8 image records on the CPU: 2 steps with the
     ResNet frozen (freeze_phi, the default) write ckpt-2.npz with the
     advanced moving averages; the pipeline augments on the device asked
-    for."""
+    for; the trained Trainer's render_summary strip matches JAX's."""
     data = tmp_path / "data"
     _write_image_data(str(data), "raw_u8")
     smpl = synthetic_smpl_model(num_verts=NUM_VERTS, num_kps=25)
@@ -140,8 +140,21 @@ def test_train_main_image_mode(tmp_path):
     stats = flatten_tree(tree["params_e"]["batch_stats"])
     assert stats and all(np.isfinite(v).all() for v in stats.values())
     assert "resnet_v2_50" not in tree["opt_state_e"]["mu"]
-    with pytest.raises(NotImplementedError, match="3a"):
-        trainer.render_summary(None)
+    # The rendered summary (K1's plain version here, the fused SMPL decode
+    # of --use_fused_smpl) against the JAX Trainer's on the trained
+    # weights; the SMPL npz has no faces, so the panels are skeletons and
+    # must match exactly.
+    from human_dynamics_tpu.core.smpl import load_smpl_model
+    from human_dynamics_tpu.utils.config import Config as JaxConfig
+    from tests.test_torch_train import _jax_strip, assert_strips_match
+
+    strip = trainer.render_summary(setup["batch"])
+    want = _jax_strip(JaxConfig(**dataclasses.asdict(trainer.config)),
+                      load_smpl_model(smpl_path),
+                      export_jax_variables(trainer.state.hmmr),
+                      _batch_arrays(Config(**DIMS)), None)
+    assert strip.shape == (32, 32 * DIMS["T"], 3)
+    assert_strips_match(strip, want, max_differ=0)
 
 
 def test_image_mode_entry_points_default_to_cuda(tmp_path):
