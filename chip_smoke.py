@@ -22,14 +22,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
    agreement and K1's launch count.
 4. The int8 trunk at 120 frames of 224x224, static scales calibrated on
    32 frames: apply_int8_static(use_pallas=True), K2's path, with its
-   launch count, against use_pallas=False and both against the fp32 trunk.
+   launch counts (one K2 launch per unit: 11 per chunk; the conv and
+   standalone pre-activation launches of the units K2 does not take and
+   none more), against use_pallas=False and both against the fp32 trunk.
    Every int8 conv and standalone pre-activation call of the
    use_pallas=False run (52 convs, 15 of them with the next unit's
    pre-activation fused in, and 1 standalone pre-activation) and every K2
    chain of the use_pallas=True run is recorded and replayed: the kernel
    against its plain version (int32 accumulators, outputs and fused
    pre-activations equal; K2 within 0.1% differing elements and rel L2
-   1e-3), and timed with CUDA events, kernel and plain version in turns
+   1e-3, printed equal or not), and timed with CUDA events, kernel and
+   plain version in turns (K2 also in turns with the same units run as
+   the int8 conv's composition, conv_s8 calls built here, per geometry
+   beside its chain bound and its per-unit byte floor)
    (per call with the wrapper's host time, as the trunk meets it), the conv
    also on the device alone (its launches queued behind a spin kernel: the
    conv's "ms"); a per-geometry table with each conv's path and tile;
@@ -609,6 +614,30 @@ def replay_conv(torch, K, n, xq, wt, stride, kw):
     return acc, err, k_ms, p_ms, d_ms
 
 
+def conv_chain(K, x, units, specs, pq, nxt):
+    """A K2 chain as the int8 conv's composition (K2's route before it had
+    a kernel of its own), a yardstick only: per unit three or four conv_s8
+    launches with the intermediates through device memory, the last conv
+    quantising the next unit's pre-activation; a standalone preact_quant
+    where no conv handed one in. Returns (out, the next unit's pq or
+    None)."""
+    last = len(units) - 1
+    for i, (p, sc) in enumerate(zip(units, specs)):
+        if pq is None:
+            pq = K.preact_quant(x, p["pA"], p["pB"], mode=0)
+        shortcut = (K.conv_s8(pq, p["wsc"], epilogue="dequant_f32",
+                              mul=p["dscm"], add=p["dsca"]) if sc else x)
+        h1 = K.conv_s8(pq, p["w1"], epilogue="requant", mul=p["q1m"],
+                       add=p["q1a"], relu=True, fma=True)
+        h2 = K.conv_s8(h1, p["w2"], epilogue="requant", mul=p["q2m"],
+                       add=p["q2a"], relu=True, fma=True)
+        after = K.unit_preact(units[i + 1]) if i < last else nxt
+        out = K.conv_s8(h2, p["w3"], epilogue="residual", mul=p["d3m"],
+                        add=p["d3a"], residual=shortcut, preact=after)
+        x, pq = out if after is not None else (out, None)
+    return x, pq
+
+
 def phase_int8_kernels(torch, model, frames):
     """Phase 4: the int8 trunk, its recorded conv / preact / K2 calls."""
     from human_dynamics_tpu_torch.infer import HmmrPredictor
@@ -632,8 +661,16 @@ def phase_int8_kernels(torch, model, frames):
         print(f"int8 trunk use_pallas=True, {CHUNK} frames: kernel launches "
               f"{dict(K.LAUNCHES)}, conv by path {dict(K.PATH_LAUNCHES)}; "
               f"K2's {k2_launches} in {len(rec_k2.calls)} chains")
-        check(k2_launches > 0, "apply_int8_static(use_pallas=True) did not "
-              "launch K2")
+        n_units = sum(len(u["params"]) for u in plan_k2["steps"]
+                      if u["kind"] == "k2")
+        other_convs = sum(3 + ("wsc" in u) for u in plan_k2["steps"]
+                          if u["kind"] != "k2")
+        check(k2_launches == n_units == 11 and len(rec_k2.calls) == 3,
+              f"the use_pallas=True trunk should launch K2 once per unit, "
+              f"11 in 3 chains; got {k2_launches} for {n_units} units")
+        check(K.LAUNCHES[K.CONV] == other_convs and K.LAUNCHES[K.PREACT] == 1,
+              f"K2's steps made conv or preact launches: {dict(K.LAUNCHES)}, "
+              f"want {other_convs} convs (the other units') and 1 preact")
         reset_counts(K)
         with Recorder(R, ["conv_s8", "preact_quant"]) as rec_xla:
             phi_xla = R.apply_int8_static(qp, scales, x)
@@ -777,8 +814,13 @@ def phase_int8_kernels(torch, model, frames):
 
     # Every K2 chain of the use_pallas=True path: the chain against
     # fused_block_reference, and the pre-activation it hands on against
-    # a standalone pass over its own output.
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
+    # a standalone pass over its own output; timed in turns with the plain
+    # version and with the same units as int8 conv launches.
+    k2 = {"ms": 0.0, "plain_ms": 0.0, "conv_ms": 0.0, "ops": 0, "bytes": 0,
+          "floor": 0, "err": 0.0}
+    print("  K2 chain (map, units, Cin -> Cout, Cb): kernel ms, TOP/s, % of "
+          "its chain bound (operations) and of its per-unit byte floor; "
+          "plain ms; the units as int8 conv launches, ms in turns")
     with torch.no_grad():
         for _, args, kw in rec_k2.calls:
             xin, units = args
@@ -789,46 +831,80 @@ def phase_int8_kernels(torch, model, frames):
                 check(torch.equal(pq_in, K.preact_quant_reference(
                     xin, units[0]["pA"], units[0]["pB"])),
                       "the pre-activation handed to a K2 chain differs")
+            reset_counts(K)
             got, got_pq = K.fused_block_pq(xin, units, **kw)
+            check(K.LAUNCHES == {K.CONV: 0, K.PREACT: 0, K.BLOCK: len(units)},
+                  f"a K2 chain of {len(units)} units launched "
+                  f"{dict(K.LAUNCHES)}")
             want = K.fused_block_reference(xin, units, **spec)
             if nxt is not None:
                 check(torch.equal(got_pq, K.preact_quant_reference(
                     got, *nxt[:3], mode=nxt.mode)),
                       "the pre-activation a K2 chain hands on differs")
+            chained, chained_pq = conv_chain(K, xin, units, spec["unit_specs"],
+                                             pq_in, nxt)
+            check(torch.equal(chained, want) and (nxt is None or torch.equal(
+                chained_pq, got_pq)), "the conv-chain yardstick differs from "
+                "the plain version")
             frac = float((got != want).float().mean())
             rel = float((got.float() - want.float()).norm()
                         / want.float().norm())
             err = max_abs(got, want)
             k2["err"] = max(k2["err"], err)
+            run = lambda: K.fused_block_pq(xin, units, **kw)
             k_ms, p_ms = in_turns(
-                lambda: K.fused_block_pq(xin, units, **kw),
-                lambda: K.fused_block_reference(xin, units, **spec))
+                run, lambda: K.fused_block_reference(xin, units, **spec))
+            k_ms2, c_ms = in_turns(
+                run, lambda: conv_chain(K, xin, units, spec["unit_specs"],
+                                        pq_in, nxt), 10, 10)
+            k_ms = min(k_ms, k_ms2)
             m = xin.shape[0] * kw["h"] * kw["w"]
             ops = sum(2 * m * (u["w1"].numel() + u["w2"].numel()
                                + u["w3"].numel()
                                + (u["wsc"].numel() if "wsc" in u else 0))
                       for u in units)
-            b = nbytes(xin, pq_in, *[t for u in units for t in u.values()])
-            b += m * units[-1]["w3"].shape[0] * (2 + (nxt is not None))
+            weights = nbytes(*[t for u in units for t in u.values()])
+            out_b = m * units[-1]["w3"].shape[0] * (2 + (nxt is not None))
+            b = nbytes(xin, pq_in) + weights + out_b
             if nxt is not None:
                 b += nbytes(nxt.pa, nxt.pb, nxt.s)
+            # Per unit: its bf16 x read once and its bf16 out written once.
+            floor = (weights + out_b + nbytes(nxt.pa, nxt.pb, nxt.s)
+                     if nxt is not None else weights + out_b)
+            floor += sum(2 * m * (u["w1"].shape[1]
+                                  + u["w3"].shape[0] * (i < len(units) - 1))
+                         for i, u in enumerate(units))
             u_ms, u_by = bound_ms(ops, INT8_OPS, b)
-            print(f"K2 {kw['h']}x{kw['w']} x{len(units)} units, Cin "
-                  f"{xin.shape[-1]}, Cb {units[0]['w1'].shape[0]}: differing "
-                  f"{frac:.2e} (<= {K2_MAX_FRAC}), rel {rel:.2e} (<= "
-                  f"{K2_MAX_REL}), max abs {err:.3e}; kernel {k_ms:.4f} ms "
-                  f"= {ops / k_ms / 1e9:.1f} TOP/s, plain {p_ms:.4f} ms, "
-                  f"bound {u_ms:.4f} ms ({u_by}, {ops / 1e12:.3f} TOP)")
+            f_ms = floor / HBM_BYTES * 1e3
+            print(f"  K2 {kw['h']}x{kw['w']} x{len(units)} units, "
+                  f"{xin.shape[-1]} -> {units[-1]['w3'].shape[0]}, Cb "
+                  f"{units[0]['w1'].shape[0]}: equal "
+                  f"{torch.equal(got, want)}, differing {frac:.2e} (<= "
+                  f"{K2_MAX_FRAC}), rel {rel:.2e} (<= {K2_MAX_REL}), max abs "
+                  f"{err:.3e}; kernel {k_ms:.4f} ms = "
+                  f"{ops / k_ms / 1e9:.1f} TOP/s, {u_ms / k_ms * 100:.1f}% "
+                  f"of {u_ms:.4f} ms ({u_by}, {ops / 1e12:.3f} TOP), "
+                  f"{f_ms / k_ms * 100:.1f}% of the byte floor {f_ms:.4f} ms "
+                  f"({floor / 1e9:.3f} GB); plain {p_ms:.4f} ms; conv chain "
+                  f"{c_ms:.4f} ms ({k_ms2:.4f} in turns with it)")
             check(frac <= K2_MAX_FRAC and rel <= K2_MAX_REL,
                   f"K2 at {kw['h']}x{kw['w']} differs from its plain version")
             k2["ms"] += k_ms
             k2["plain_ms"] += p_ms
+            k2["conv_ms"] += c_ms
             k2["ops"] += ops
             k2["bytes"] += b
+            k2["floor"] += floor
     k2_bound, k2_by = bound_ms(k2["ops"], INT8_OPS, k2["bytes"])
-    print(f"K2, all {len(rec_k2.calls)} chains of one chunk: kernel "
-          f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, bound "
-          f"{k2_bound:.4f} ms ({k2_by})")
+    k2_floor = k2["floor"] / HBM_BYTES * 1e3
+    print(f"K2, all {len(rec_k2.calls)} chains ({k2_launches} units) of one "
+          f"chunk: kernel {k2['ms']:.4f} ms = "
+          f"{k2['ops'] / k2['ms'] / 1e9:.1f} TOP/s, plain "
+          f"{k2['plain_ms']:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}, "
+          f"{k2_bound / k2['ms'] * 100:.1f}%), per-unit byte floor "
+          f"{k2_floor:.4f} ms ({k2['floor'] / 1e9:.3f} GB, "
+          f"{k2_floor / k2['ms'] * 100:.1f}%); the units as int8 conv "
+          f"launches {k2['conv_ms']:.4f} ms")
 
     # The trunks, one chunk each.
     with torch.no_grad():
@@ -850,7 +926,8 @@ def phase_int8_kernels(torch, model, frames):
                    "bound_by": p_by, "library_ms": None},
         "k2": {"launches": k2_launches, "max_abs_err": k2["err"],
                "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-               "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+               "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+               "byte_floor_ms": k2_floor, "conv_chain_ms": k2["conv_ms"]},
     }
 
 
@@ -3299,7 +3376,8 @@ def main():
           f"{torch.backends.cudnn.allow_tf32}")
 
     # Phase 1: build.
-    build_all(load_kernel_libraries, [smpl_cuda.KERNEL_NAME, K.KERNEL_NAME])
+    build_all(load_kernel_libraries, [smpl_cuda.KERNEL_NAME, K.KERNEL_NAME,
+                                      K.K2_KERNEL_NAME])
 
     # Phase 2: K1 against its plain version, TF32 off for the plain products.
     smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS,
@@ -3477,7 +3555,7 @@ def main():
              demo_tracks=dm["tracks"], demo_n=dm["n"], demo_ms=dm["ms"],
              demo_plain_ms=dm["plain_ms"], demo_bound_ms=dm["bound_ms"],
              **k1),
-        dict(name=K.BLOCK, source=csrc + "resnet_int8.cu",
+        dict(name=K.BLOCK, source=csrc + "k2_unit.cu",
              replaces="human_dynamics_tpu/ops/resnet_int8_pallas.py:151",
              **int8["k2"]),
         dict(name=K.CONV, source=csrc + "resnet_int8.cu",
@@ -3503,7 +3581,7 @@ def main():
                   "dp_launches", "dp_steps", "dp_rank_n", "dp_ms",
                   "dp_plain_ms", "dp_bound_ms", "demo_launches",
                   "demo_tracks", "demo_n", "demo_ms", "demo_plain_ms",
-                  "demo_bound_ms")
+                  "demo_bound_ms", "byte_floor_ms", "conv_chain_ms")
     print(json.dumps({"kernels": [
         {k: dict(kern, route="cuda")[k] for k in keys
          + tuple(k for k in train_keys if k in kern)} for kern in kernels

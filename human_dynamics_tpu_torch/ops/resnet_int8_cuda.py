@@ -3,8 +3,9 @@ and K2, the chained int8 bottleneck block, with their plain versions.
 
 Counterpart of ``human_dynamics_tpu/ops/resnet_int8_pallas.py`` (K2) and of
 the XLA integer convolutions of ``human_dynamics_tpu/models/resnet_int8.py``
-(``_conv_s8`` with its requant / dequant epilogues). The CUDA source is
-``csrc/resnet_int8.cu``:
+(``_conv_s8`` with its requant / dequant epilogues). The CUDA sources are
+``csrc/resnet_int8.cu`` (the conv and the pre-activation) and
+``csrc/k2_unit.cu`` (K2):
 
 - ``conv_s8``: NHWC int8 x (Cout, K) int8 weights -> int32 accumulators,
   with a per-output-channel f32 epilogue fused in (see ``EPILOGUES``) and,
@@ -15,10 +16,9 @@ the XLA integer convolutions of ``human_dynamics_tpu/models/resnet_int8.py``
 - ``preact_quant``: bf16 residual stream -> folded BN + ReLU -> int8; the
   standalone pass, for a unit whose input no conv produced.
 - ``fused_block``: K2, a chain of stride-1 pre-activation bottleneck units
-  with static scales: three or four conv kernel launches per unit (the
-  first unit also one pre-activation launch; the later ones get theirs
-  from the previous unit's last conv), the unit's intermediates through
-  device memory.
+  with static scales, one launch of ``csrc/k2_unit.cu`` per unit (the
+  pre-activation, both requantised convs and the residual conv in one
+  kernel, h1 and h2 in shared memory; ``k2_plan`` picks its tiles).
 
 Weights are k-major, (Cout, K) with K = kh*kw*Cin contiguous in the
 flattened HWIO order: the transpose of the JAX package's (K, Cout) GEMM
@@ -46,14 +46,14 @@ import torch
 import torch.nn.functional as F
 
 KERNEL_NAME = "resnet_int8"
+K2_KERNEL_NAME = "k2_unit"
 CONV = "resnet_int8_conv"
 PREACT = "resnet_int8_preact"
 BLOCK = "resnet_int8_block"
 
 # Kernel launches by wrapper; chip_smoke.py resets and reads them to show
-# that the main path went through the kernels. Every launch fused_block makes
-# inside K2 (a pre-activation for the chain's first unit without one, three
-# or four convs per unit) counts under BLOCK, not under CONV or PREACT.
+# that the main path went through the kernels. BLOCK counts K2's launches,
+# one per unit.
 LAUNCHES = {CONV: 0, PREACT: 0, BLOCK: 0}
 
 # Epilogue, flag and path codes of csrc/resnet_int8.cu.
@@ -514,30 +514,193 @@ def _conv_plain(xq, wt, stride, epilogue, mul=None, add=None, **kw):
                               mul, add, **kw)
 
 
-def _unit(x, pq, p, has_shortcut, nxt, cuda):
-    """One K2 unit on the kernels (``cuda``) or the plain versions. ``pq``
-    is the unit's pre-activation when the previous conv made it, else it is
-    computed here; ``nxt`` is the next unit's ``Preact`` for the last conv
-    to fuse. Returns (out, the next unit's pq or None)."""
-    if cuda:
-        conv = functools.partial(_conv_cuda, BLOCK)
-        if pq is None:
-            pq = _preact_cuda(BLOCK, x, p["pA"], p["pB"], mode=0)
-    else:
-        conv = _conv_plain
-        if pq is None:
-            pq = preact_quant_reference(x, p["pA"], p["pB"], mode=0)
+def _unit_plain(x, p, has_shortcut, nxt):
+    """One K2 unit on the plain versions; ``nxt`` is the next unit's
+    ``Preact`` for the last conv to quantise. Returns (out, the next unit's
+    pq or None)."""
+    pq = preact_quant_reference(x, p["pA"], p["pB"], mode=0)
     if has_shortcut:
-        shortcut = conv(pq, p["wsc"], 1, "dequant_f32", p["dscm"], p["dsca"])
+        shortcut = _conv_plain(pq, p["wsc"], 1, "dequant_f32", p["dscm"],
+                               p["dsca"])
     else:
         shortcut = x
-    h1 = conv(pq, p["w1"], 1, "requant", p["q1m"], p["q1a"], relu=True,
-              fma=True)
-    h2 = conv(h1, p["w2"], 1, "requant", p["q2m"], p["q2a"], relu=True,
-              fma=True)
-    out = conv(h2, p["w3"], 1, "residual", p["d3m"], p["d3a"],
-               residual=shortcut, preact=nxt)
+    h1 = _conv_plain(pq, p["w1"], 1, "requant", p["q1m"], p["q1a"],
+                     relu=True, fma=True)
+    h2 = _conv_plain(h1, p["w2"], 1, "requant", p["q2m"], p["q2a"],
+                     relu=True, fma=True)
+    out = _conv_plain(h2, p["w3"], 1, "residual", p["d3m"], p["d3a"],
+                      residual=shortcut, preact=nxt)
     return out if nxt is not None else (out, None)
+
+
+# Shared memory a block may take on an H100 (227 KB).
+K2_SMEM_MAX = 232448
+# Layout constants of csrc/k2_unit.cu: the padding of every activation row,
+# the weight ring's least and most slots and its padded 64-byte rows; one
+# warp's tile is 64 pixels x 32 channels and a block has 8 warps.
+_K2_PAD, _K2_STAGES, _K2_BROW = 16, (3, 8), 80
+_K2_WARPS, _K2_WARP_ROWS = 8, 64
+
+
+class K2Plan(NamedTuple):
+    """How the K2 kernel runs one unit: each block computes ``rows`` output
+    rows of one frame (``tiles`` blocks a frame, ``grid`` in all) with
+    ``warp_rows`` of its 8 warps along the pixels (one pass of 64 *
+    warp_rows pixels, 256 / warp_rows channels a chunk), its weights
+    through a ring of ``stages`` slots, in ``smem_bytes`` of shared
+    memory."""
+
+    rows: int
+    tiles: int
+    warp_rows: int
+    stages: int
+    smem_bytes: int
+    grid: int
+
+
+def _round128(b: int) -> int:
+    return (b + 127) // 128 * 128
+
+
+def _k2_smem(h, w, cin, cb, rows, warp_rows, has_shortcut, stages):
+    """Shared memory of one K2 block (csrc/k2_unit.cu's ``layout``): the
+    zero-bordered h1 plane of rows + 2 rows, pq of the tile's rows and
+    their halo, h2 (in pq's place without a projection shortcut) and the
+    weight ring of ``stages`` slots."""
+    h1 = _round128((rows + 2) * (w + 2) * (cb + _K2_PAD))
+    pq = _round128(min(rows + 2, h) * w * (cin + _K2_PAD))
+    h2 = _round128(rows * w * (cb + _K2_PAD))
+    region = pq + h2 if has_shortcut else max(pq, h2)
+    nc = _K2_WARPS // warp_rows * 32
+    return h1 + region + stages * nc * _K2_BROW
+
+
+def _k2_warp_rows(pixels: int) -> int:
+    """Warps along the pixels: the fewest whose pass covers ``pixels``."""
+    for wm in (1, 2, 4):
+        if pixels <= wm * _K2_WARP_ROWS:
+            return wm
+    return 4
+
+
+def k2_plan(n: int, h: int, w: int, cin: int, cb: int, cout: int,
+            has_shortcut: bool) -> K2Plan:
+    """The K2 kernel's tiles for one unit (pure, no device).
+
+    A block takes whole rows of one frame: the largest row count whose
+    pixels and one-row halo (phase A's pixels) fit one 256-pixel pass and
+    whose shared memory fits ``K2_SMEM_MAX``; then the frame's rows are
+    split evenly over as many tiles (7-row tiles at 28x28 and 14x14, the
+    whole frame at 7x7). Two frames a block do not fit at 7x7 with Cin
+    2048 (their pq alone is 202 KB). The weight ring takes what shared
+    memory is left, up to 8 slots. Raises ``ValueError`` for what the
+    kernel does not take: channel counts that are not positive multiples
+    of 32, an identity shortcut with Cin != Cout, a row too wide for the
+    shared memory.
+    """
+    if min(cin, cb, cout) <= 0 or cin % 32 or cb % 32 or cout % 32:
+        raise ValueError(
+            f"the K2 kernel takes channel counts that are multiples of 32, "
+            f"got Cin={cin}, Cb={cb}, Cout={cout}")
+    if not has_shortcut and cin != cout:
+        raise ValueError(f"an identity shortcut needs Cout == Cin, got "
+                         f"Cin={cin}, Cout={cout}")
+    if min(n, h, w) < 1:
+        raise ValueError(f"no K2 tile for n={n}, h={h}, w={w}")
+
+    least, most = _K2_STAGES
+
+    def fits(rows):
+        pixels = min(rows + 2, h) * w
+        smem = _k2_smem(h, w, cin, cb, rows, _k2_warp_rows(pixels),
+                        has_shortcut, least)
+        return smem <= K2_SMEM_MAX and (pixels <= 4 * _K2_WARP_ROWS
+                                        or rows == 1)
+
+    largest = next((r for r in range(h, 0, -1) if fits(r)), None)
+    if largest is None:
+        raise ValueError(f"a {w}-pixel row of Cin={cin}, Cb={cb} does not "
+                         f"fit the K2 kernel's shared memory")
+    tiles = -(-h // largest)
+    rows = -(-h // tiles)
+    wm = _k2_warp_rows(min(rows + 2, h) * w)
+    stages = max(s for s in range(least, most + 1)
+                 if _k2_smem(h, w, cin, cb, rows, wm, has_shortcut, s)
+                 <= K2_SMEM_MAX)
+    return K2Plan(rows, tiles, wm, stages,
+                  _k2_smem(h, w, cin, cb, rows, wm, has_shortcut, stages),
+                  n * tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_library() -> ctypes.CDLL:
+    """The built K2 library, with its C signatures declared."""
+    from human_dynamics_tpu_torch.ops._build import load_kernel_library
+
+    lib = load_kernel_library(K2_KERNEL_NAME).lib
+    lib.k2_unit_launch.argtypes = ([ctypes.c_void_p] * 20
+                                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    lib.k2_unit_launch.restype = ctypes.c_int
+    lib.k2_unit_error_string.argtypes = [ctypes.c_int]
+    lib.k2_unit_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_unit(p, cin, has_shortcut):
+    """K2's operands of one unit: int8 k-major weights and (C,) float32
+    multipliers of the unit's widths. Returns (Cb, Cout)."""
+    cb, cout = p["w1"].shape[0], p["w3"].shape[0]
+    shapes = {"w1": (cb, cin), "w2": (cb, 9 * cb), "w3": (cout, cb),
+              "pA": (cin,), "pB": (cin,), "q1m": (cb,), "q1a": (cb,),
+              "q2m": (cb,), "q2a": (cb,), "d3m": (cout,), "d3a": (cout,)}
+    if has_shortcut:
+        shapes.update(wsc=(cout, cin), dscm=(cout,), dsca=(cout,))
+    for k, shape in shapes.items():
+        dtype = torch.int8 if k.startswith("w") else torch.float32
+        if tuple(p[k].shape) != shape or p[k].dtype != dtype:
+            raise ValueError(f"unit operand {k} is {tuple(p[k].shape)} "
+                             f"{p[k].dtype}, want {shape} {dtype}")
+    return cb, cout
+
+
+def _unit_cuda(x, p, has_shortcut, nxt):
+    """Launch the K2 kernel for one unit on PyTorch's current stream; the
+    launch counts under LAUNCHES[BLOCK]. Returns (out, the next unit's pq
+    or None)."""
+    n, h, w, cin = x.shape
+    cb, cout = _check_unit(p, cin, has_shortcut)
+    plan = k2_plan(n, h, w, cin, cb, cout, has_shortcut)
+    nx = nxt if nxt is not None else Preact(None, None, None, 0)
+    if nxt is not None:
+        _check_preact_operands(cout, *nxt)
+    out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    pq = (None if nxt is None
+          else torch.empty((n, h, w, cout), dtype=torch.int8,
+                           device=x.device))
+    sc = [p[k] for k in ("wsc", "dscm", "dsca")] if has_shortcut else [None] * 3
+    vectors = [p[k] for k in ("q1m", "q1a", "q2m", "q2a", "d3m", "d3a")]
+    _check_cuda_layout(
+        _operands(x, out, pq, p["w1"], p["w2"], p["w3"], sc[0], p["pA"],
+                  p["pB"], nx.pa, nx.pb),
+        _operands(*vectors, sc[1], sc[2], nx.s))
+    lib = _k2_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.k2_unit_launch(
+            x.data_ptr(), out.data_ptr(), _ptr(pq), p["pA"].data_ptr(),
+            p["pB"].data_ptr(), p["w1"].data_ptr(), p["q1m"].data_ptr(),
+            p["q1a"].data_ptr(), p["w2"].data_ptr(), p["q2m"].data_ptr(),
+            p["q2a"].data_ptr(), p["w3"].data_ptr(), p["d3m"].data_ptr(),
+            p["d3a"].data_ptr(), _ptr(sc[0]), _ptr(sc[1]), _ptr(sc[2]),
+            _ptr(nx.pa), _ptr(nx.pb), _ptr(nx.s), nx.mode, n, h, w, cin, cb,
+            cout, plan.rows, plan.warp_rows, plan.stages, plan.smem_bytes,
+            stream,
+        )
+    if code != 0:
+        msg = lib.k2_unit_error_string(code).decode()
+        raise RuntimeError(f"{BLOCK} launch failed: {msg} ({code})")
+    LAUNCHES[BLOCK] += 1
+    return out, pq
 
 
 def fused_block_reference(x: torch.Tensor, unit_params: Sequence[Dict], *,
@@ -547,7 +710,7 @@ def fused_block_reference(x: torch.Tensor, unit_params: Sequence[Dict], *,
     its own pre-activation."""
     _check_block(x, unit_params, h, w, unit_specs)
     for p, sc in zip(unit_params, unit_specs):
-        x, _ = _unit(x, None, p, sc, None, cuda=False)
+        x, _ = _unit_plain(x, p, sc, None)
     return x
 
 
@@ -557,19 +720,21 @@ def fused_block_pq(x: torch.Tensor, unit_params: Sequence[Dict], *, h: int,
                    next_preact: Optional[Preact] = None):
     """``fused_block`` that carries pre-activations across its ends: ``pq``
     is the first unit's int8 pre-activation of x when the previous conv
-    made it, and ``next_preact`` the operands of the unit after the chain,
-    which the chain's last conv then quantises too. Inside the chain every
-    unit's last conv quantises the next unit's pre-activation. Returns
-    (out, the next unit's pq or None)."""
+    made it (checked, then unused: every unit quantises its own from x,
+    which it reads anyway), and ``next_preact`` the operands of the unit
+    after the chain, which the chain's last unit then quantises from its
+    output too. Returns (out, the next unit's pq or None). CUDA tensors
+    launch the K2 kernel once per unit, CPU tensors run the plain
+    version."""
     tensors = [x] + [t for p in unit_params for t in p.values()]
     cuda = _device_of(tensors, "fused_block") == "cuda"
     _check_block(x, unit_params, h, w, unit_specs)
     if pq is not None and (pq.shape != x.shape or pq.dtype != torch.int8):
         raise ValueError(f"pq must be int8 of x's shape {tuple(x.shape)}")
+    unit = _unit_cuda if cuda else _unit_plain
     last = len(unit_params) - 1
     for i, (p, sc) in enumerate(zip(unit_params, unit_specs)):
-        nxt = unit_preact(unit_params[i + 1]) if i < last else next_preact
-        x, pq = _unit(x, pq, p, sc, nxt, cuda)
+        x, pq = unit(x, p, sc, next_preact if i == last else None)
     return x, pq
 
 

@@ -433,6 +433,70 @@ def test_fused_block_pq_carries_preacts(has_shortcut):
     assert torch.equal(out2, want) and none is None
 
 
+# (n, h, w, Cin, Cb, Cout, has_shortcut): the trunk's K2 units at 120
+# frames and the units of test_cuda_fused_block_matches_plain.
+K2_UNITS = [
+    (120, 28, 28, 256, 128, 512, True), (120, 28, 28, 512, 128, 512, False),
+    (120, 14, 14, 512, 256, 1024, True), (120, 14, 14, 1024, 256, 1024, False),
+    (120, 7, 7, 1024, 512, 2048, True), (120, 7, 7, 2048, 512, 2048, False),
+    (4, 28, 28, 256, 128, 512, True), (4, 14, 14, 512, 256, 1024, True),
+    (4, 7, 7, 1024, 512, 2048, True),
+]
+
+
+@pytest.mark.parametrize("unit", K2_UNITS)
+def test_k2_plan_geometries(unit):
+    """k2_plan's tiles: within the shared memory a block may take, with as
+    many weight-ring slots as it leaves (up to 8), one pass over phase A's
+    pixels (the tile's rows and their halo), and row tiles
+    that cover every output row of every frame exactly once; 7-row tiles
+    at 28x28 and 14x14, the whole frame at 7x7."""
+    n, h, w, cin, cb, cout, sc = unit
+    plan = K.k2_plan(*unit)
+    assert plan.smem_bytes <= K.K2_SMEM_MAX == 232448
+    smem = lambda stages: K._k2_smem(h, w, cin, cb, plan.rows,
+                                     plan.warp_rows, sc, stages)
+    assert plan.smem_bytes == smem(plan.stages)
+    assert 3 <= plan.stages <= 8
+    assert plan.stages == 8 or smem(plan.stages + 1) > K.K2_SMEM_MAX
+    assert min(plan.rows + 2, h) * w <= 64 * plan.warp_rows
+    covered = [r for t in range(plan.tiles)
+               for r in range(t * plan.rows, min((t + 1) * plan.rows, h))]
+    assert covered == list(range(h))
+    assert plan.grid == n * plan.tiles
+    assert plan.rows == 7 and plan.warp_rows == {28: 4, 14: 2, 7: 1}[h]
+
+
+def test_k2_plan_refuses_what_the_kernel_does_not_take():
+    for args in ((2, 7, 7, 48, 32, 48, False), (2, 7, 7, 64, 8, 64, False),
+                 (2, 7, 7, 64, 32, 96, False), (2, 7, 7, 64, 32, 0, True),
+                 (2, 4, 4000, 2048, 512, 2048, False)):
+        with pytest.raises(ValueError):
+            K.k2_plan(*args)
+    # Wide maps get one-row tiles in several passes; ragged tiles are even.
+    assert K.k2_plan(1, 224, 224, 64, 64, 64, False)[:3] == (1, 224, 4)
+    assert K.k2_plan(1, 31, 20, 64, 64, 64, False)[:2] == (8, 4)
+
+
+def test_fused_block_cuda_path_refuses_shapes(monkeypatch):
+    """On the CUDA path fused_block raises ValueError, before any launch,
+    for units the kernel does not take (Cb 8) and for operands of the
+    wrong shape; nothing falls back to the plain version."""
+    monkeypatch.setattr(K, "_device_of", lambda tensors, what: "cuda")
+    rng = np.random.RandomState(0)
+    unit = _port_unit(_random_unit(rng, 16, 8, 16))
+    x = torch.zeros(1, 4, 4, 16, dtype=torch.bfloat16)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        K.fused_block(x, [unit], h=4, w=4, unit_specs=(True,))
+    unit = _port_unit(_random_unit(rng, 32, 32, 32))
+    unit["q2a"] = unit["q2a"][:16]
+    with pytest.raises(ValueError, match="q2a"):
+        K.fused_block(torch.zeros(1, 4, 4, 32, dtype=torch.bfloat16), [unit],
+                      h=4, w=4, unit_specs=(True,))
+    assert K.LAUNCHES == before
+
+
 def test_build_key_covers_every_header(tmp_path, monkeypatch):
     """The library's cache key changes with the source, with any .cuh
     header under csrc/ and with nothing else there."""
@@ -553,10 +617,12 @@ def test_cuda_preact_matches_plain(cuda_device, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,cb,cout,h", [(256, 128, 512, 28),
                                            (512, 128, 512, 28),
+                                           (512, 256, 1024, 14),
                                            (1024, 512, 2048, 7)])
 def test_cuda_fused_block_matches_plain(cuda_device, cin, cb, cout, h):
     """K2 on two units (the first with a projection shortcut when
-    Cin != Cout) against fused_block_reference on the card."""
+    Cin != Cout) against fused_block_reference on the card, and the next
+    unit's pre-activation the chain hands on, in both modes."""
     rng = np.random.RandomState(cin + h)
     first = _port_unit(_random_unit(rng, cin, cb, cout))
     second = _port_unit(_random_unit(rng, cout, cb, cout))
@@ -572,12 +638,17 @@ def test_cuda_fused_block_matches_plain(cuda_device, cin, cb, cout, h):
     before = K.LAUNCHES[K.BLOCK]
     got = K.fused_block(x, units, **kw)
     torch.cuda.synchronize()
-    # The first unit's pre-activation, three convs per unit (the first
-    # unit's last conv also quantises the second's pre-activation), plus
-    # the shortcut conv.
-    assert K.LAUNCHES[K.BLOCK] == before + 1 + 2 * 3 + has_sc
+    # One launch of the K2 kernel per unit.
+    assert K.LAUNCHES[K.BLOCK] == before + 2
     want = K.fused_block_reference(x, units, **kw)
     assert torch.equal(got, want)
+    for mode in (0, 1):
+        nxt = _preact_operands(cuda_device, cout, mode, seed=mode)
+        out, pq = K.fused_block_pq(x, units, next_preact=nxt, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert torch.equal(pq, K.preact_quant_reference(want, *nxt[:3],
+                                                        mode=mode))
 
 
 # (n, h, w, cin, cout, k, stride) for the fused pre-activation: both paths,
