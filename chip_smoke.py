@@ -164,6 +164,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    render_preds and make_video on the 40-frame track (the sphere in place
    of the synthetic SMPL's vertices); K1 at the track's N against its
    plain version and timed.
+17. The dataset tools (datasets/, at full width: the phase-2 model's
+   ResNet-50 v2, synthetic_smpl_model(6890, 25)): 150 JPEG frames of
+   720x1280 with demo_person's keypoints. FeatureExtractor (batch 64) on the
+   card against the same extractor on the CPU on 24 augmented crops (phis
+   within 1e-4 relative L2 per frame); TubeConverter.write_tubes on the
+   card for the 150-frame tube and a 24-frame one into one shard, the short
+   tube's record held to the same converter on the CPU (the same draws,
+   labels within 1e-4, phis as above, every other field equal), a rerun
+   skipping the shard; ms per 150-frame tube split into host crops,
+   augmentation on the card, phis and the record's encoding and write,
+   with the frames read and cropped by 1 thread and by the converter's
+   workers in turns, and the phis' frames/s at batch 64; the shard (and
+   mocap records from datasets.mocap) through the phi-mode
+   TrainDataPipeline into one full-width Trainer.step (losses finite, K1
+   once); fit_neutral_shape against a known beta on the card (the first
+   100 Adam steps within 1e-4 of the CPU's; the fit within 0.05 of the
+   beta with loss < 1e-4, its iterations and ms per iteration); a test
+   record of the 150 frames read back (224 crops, N = 150).
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -304,6 +322,17 @@ DEMO_CROP32_TOL = 2.0 ** -23
 RENDER_SPHERE = (85, 82)
 RENDER_RGB_TOL = 1e-5
 N_RENDER_TIMED = 3
+# Phase 17: the dataset tools. A DS_FRAMES- and a DS_SHORT-frame tube of
+# DEMO_H x DEMO_W JPEG frames; DS_PHI_N augmented crops for the extractor.
+# The card's phis against the CPU's: fp32 without TF32, convolutions summed
+# in other orders (relative L2 per frame); labels by the augment's keypoint
+# bound (tests/test_torch_augment.py). The neutral-shape fit: the recovery
+# bounds of tests/test_datasets.py, and the card's first FIT_CPU_ITERS Adam
+# steps against the CPU's.
+DS_FRAMES, DS_SHORT, DS_PHI_N, DS_PHI_BATCH, DS_TIMED = 150, 24, 24, 64, 2
+DS_PHI_REL, DS_LABEL_ATOL = 1e-4, 1e-4
+FIT_ITERS, FIT_BETA_TOL, FIT_LOSS_MAX = 3000, 0.05, 1e-4
+FIT_CPU_ITERS, FIT_CPU_TOL = 100, 1e-4
 PROFILE = "--profile" in sys.argv[1:]
 TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
 
@@ -3345,6 +3374,326 @@ def phase_demo(torch, np, dev, model, smpl, K, smpl_cuda, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the dataset tools
+# ---------------------------------------------------------------------------
+
+
+def ds_frames(np, root, n):
+    """n JPEG frames of DEMO_H x DEMO_W (blocky noise sliding left) in
+    `root`, and demo_person's 25 keypoints walking through them."""
+    import cv2
+
+    rng = np.random.RandomState(17)
+    base = cv2.resize(
+        rng.randint(0, 256, (DEMO_H // 4, (DEMO_W + 2 * n) // 4 + 1, 3),
+                    dtype=np.uint8),
+        None, fx=4, fy=4, interpolation=cv2.INTER_NEAREST)
+    paths = []
+    for i in range(n):
+        paths.append(os.path.join(root, f"frame{i:04d}.jpg"))
+        cv2.imwrite(paths[-1], base[:, 2 * i:2 * i + DEMO_W])
+    return paths, np.stack([demo_person(np, i) for i in range(n)])
+
+
+def phi_rel(np, got, want):
+    """The largest relative L2 distance of a frame's phi."""
+    return float((np.linalg.norm(got - want, axis=1)
+                  / np.linalg.norm(want, axis=1)).max())
+
+
+def check_tube_record(np, got, want, what):
+    """A tube record of the card against the CPU's: labels within
+    DS_LABEL_ATOL, phis within DS_PHI_REL, every other field equal."""
+    lab = float(np.abs(got.kps - want.kps).max())
+    rel = phi_rel(np, got.phis, want.phis)
+    differ = []
+    for field in ("n", "image_shapes", "centers", "scale_factors",
+                  "start_pts", "time_pts", "image_paths", "image_datas",
+                  "poses", "gt3ds", "shape", "cams"):
+        g, w = getattr(got, field), getattr(want, field)
+        if (g is None) != (w is None) or (
+                w is not None and not np.array_equal(np.asarray(g),
+                                                     np.asarray(w))):
+            differ.append(field)
+    print(f"datasets: {what}, card vs CPU: labels max abs {lab:.3e} (tol "
+          f"{DS_LABEL_ATOL:g}), phis rel L2 {rel:.3e} (tol {DS_PHI_REL:g}), "
+          f"other fields {f'DIFFER: {differ}' if differ else 'equal'}")
+    check(lab <= DS_LABEL_ATOL and rel <= DS_PHI_REL and not differ,
+          f"datasets: {what} differs from the CPU's")
+    return lab, rel
+
+
+def time_tube(torch, conv, tube, path):
+    """Wall ms of one tube through process_tube and into a record file,
+    split at the device's synchronised stage boundaries: the host crops
+    (bbox smoothing, frame decode, resize, crop: until the augmentation
+    starts), the augmentation on the device, the phis, and the rest (the
+    record's encoding and write)."""
+    from human_dynamics_tpu_torch.data.tfrecord import TFRecordWriter
+
+    marks = {}
+    fe = conv.feature_extractor
+
+    def marked(stage, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            marks[stage] = [time.perf_counter()]
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            marks[stage].append(time.perf_counter())
+            return result
+        return run
+
+    conv._augment_tube = marked("augment", conv._augment_tube)
+    fe.compute_all_phis = marked("phis", fe.compute_all_phis)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with TFRecordWriter(path) as w:
+            w.write(conv.process_tube(rng_key=0, **tube))
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        del conv._augment_tube, fe.compute_all_phis
+    split = {"crops": (marks["augment"][0] - t0) * 1e3}
+    split.update((k, (marks[k][1] - marks[k][0]) * 1e3)
+                 for k in ("augment", "phis"))
+    split["write"] = total - sum(split.values())
+    return total, split
+
+
+def fit_iterations(torch, fit, smpl, target, device, **kw):
+    """fit(...) with its optimizer steps counted (one an iteration);
+    returns (beta, loss, iterations, wall ms)."""
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    steps = [0]
+    hook = register_optimizer_step_post_hook(
+        lambda opt, args, kwargs: steps.__setitem__(0, steps[0] + 1))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beta, loss = fit(smpl, target, device=device, **kw)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        hook.remove()
+    return beta, loss, steps[0], wall
+
+
+def phase_datasets(torch, np, dev, model, smpl, smpl_cuda, card):
+    """Phase 17: the dataset tools on a walking person's JPEG frames: phis,
+    the augmented tube writer, one training step on its shard, the 3DPW
+    neutral-shape fit and a test record."""
+    import tempfile
+
+    from human_dynamics_tpu_torch.core import smpl_forward
+    from human_dynamics_tpu_torch.data.loader import TrainDataPipeline
+    from human_dynamics_tpu_torch.data.schema import (
+        parse_temporal_example,
+        read_test_example,
+    )
+    from human_dynamics_tpu_torch.data.tfrecord import read_tfrecord
+    from human_dynamics_tpu_torch.datasets import common, tube_writer
+    from human_dynamics_tpu_torch.datasets.mocap import write_mocap_records
+    from human_dynamics_tpu_torch.datasets.phi_extractor import (
+        FeatureExtractor,
+    )
+    from human_dynamics_tpu_torch.datasets.tdpw import fit_neutral_shape
+    from human_dynamics_tpu_torch.datasets.test_records import (
+        save_seq_to_test_tfrecord,
+    )
+    from human_dynamics_tpu_torch.infer.bbox import get_smooth_bbox_params
+    from human_dynamics_tpu_torch.train.trainer import Batch, Trainer
+    from human_dynamics_tpu_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths, kps = ds_frames(np, tmp, DS_FRAMES)
+        print(f"datasets: {DS_FRAMES} JPEG frames of {DEMO_H}x{DEMO_W} "
+              f"written in {time.perf_counter() - t0:.1f} s")
+        fe = FeatureExtractor(model.resnet_v2_50, batch_size=DS_PHI_BATCH,
+                              device=dev)
+        fe_cpu = FeatureExtractor(model.resnet_v2_50,
+                                  batch_size=DS_PHI_BATCH, device="cpu")
+        check(fe.resnet is model.resnet_v2_50,
+              "datasets: the extractor copied a ResNet already on the card")
+        data_dir = os.path.join(tmp, "data")
+        conv = tube_writer.TubeConverter(
+            os.path.join(data_dir, "insta_variety", "train"),
+            feature_extractor=fe)
+        conv_cpu = tube_writer.TubeConverter(os.path.join(tmp, "cpu"),
+                                             feature_extractor=fe_cpu)
+
+        # Phis of DS_PHI_N augmented crops (a zero-padded batch of 64): the
+        # card against the CPU.
+        bbox = get_smooth_bbox_params(list(kps[:DS_PHI_N]), 0.0, sigma=3)[0]
+        rets = [common.crop_person(common.load_image(paths[i]), kps[i],
+                                   bbox[i], tube_writer.CROP, encode=False)
+                for i in range(DS_PHI_N)]
+        crops224, _ = conv._augment_tube(
+            [r["image"] for r in rets], [r["label"] for r in rets],
+            [r["center"] for r in rets], 0)
+        phis = fe.compute_all_phis(crops224)
+        rel = phi_rel(np, phis, fe_cpu.compute_all_phis(crops224.cpu()))
+        print(f"datasets: phis of {DS_PHI_N} augmented 224 crops at batch "
+              f"{DS_PHI_BATCH}, card vs CPU: max rel L2 per frame {rel:.3e} "
+              f"(tol {DS_PHI_REL:g}); mean |phi| "
+              f"{np.linalg.norm(phis, axis=1).mean():.3f}")
+        check(phis.shape == (DS_PHI_N, 2048) and np.isfinite(phis).all()
+              and rel <= DS_PHI_REL, "datasets: phis on the card differ "
+              "from the CPU's")
+        out["phi_rel"] = rel
+        del crops224, rets
+
+        # The tube writer on the card: both tubes into one shard; the short
+        # one (rng_key 1) against the same converter on the CPU; a rerun
+        # skips the shard.
+        tubes = [dict(image_paths=paths, gt2ds=kps),
+                 dict(image_paths=paths[:DS_SHORT], gt2ds=kps[:DS_SHORT])]
+        t0 = time.perf_counter()
+        shard, = conv.write_tubes("ds", tubes)
+        first_s = time.perf_counter() - t0
+        records = [parse_temporal_example(r)
+                   for r in read_tfrecord(shard, check_crc=True)]
+        check([r.n for r in records] == [DS_FRAMES, DS_SHORT]
+              and all(r.phis.shape == (r.n, 2048)
+                      and np.isfinite(r.phis).all()
+                      and np.abs(r.kps[..., :2]).max() <= 1.0
+                      for r in records),
+              "datasets: the shard's records have other shapes")
+        out["label_err"], out["tube_phi_rel"] = check_tube_record(
+            np, records[1], parse_temporal_example(
+                conv_cpu.process_tube(rng_key=1, **tubes[1])),
+            f"the {DS_SHORT}-frame tube (draws from seed 0 + rng_key 1)")
+        mtime = os.path.getmtime(shard)
+        check(conv.write_tubes("ds", tubes) == [shard]
+              and os.path.getmtime(shard) == mtime,
+              "datasets: a rerun rewrote the shard")
+        mib = os.path.getsize(shard) / 2**20
+        print(f"datasets: write_tubes of a {DS_FRAMES}- and a {DS_SHORT}-"
+              f"frame tube into one shard ({mib:.2f} MiB) in {first_s:.2f} "
+              f"s, first call; a rerun skips it")
+
+        # Timings: the long tube split by stage, its frames read and
+        # cropped by one thread and by the converter's workers, in turns;
+        # then the phis alone.
+        workers = conv.workers
+        runs = {1: [], workers: []}
+        for i, w in enumerate((1, workers, workers, 1)):
+            conv.workers = w
+            runs[w].append(time_tube(torch, conv, tubes[0], os.path.join(
+                tmp, f"timed{i}.tfrecord")))
+        conv.workers = workers
+        for w in sorted(runs, reverse=True):
+            total, split = min(runs[w], key=lambda r: r[0])
+            print(f"datasets timing [{card}]: ms per {DS_FRAMES}-frame tube, "
+                  f"frames read and cropped by {w} thread(s) (best of "
+                  f"{len(runs[w])}; all {[round(r[0], 2) for r in runs[w]]})"
+                  f": {total:.2f} = host crops {split['crops']:.2f} + "
+                  f"augment on the card {split['augment']:.2f} + phis "
+                  f"{split['phis']:.2f} + encode and write "
+                  f"{split['write']:.2f}")
+        out.update(tube_ms=min(r[0] for r in runs[workers]),
+                   tube_ms_1=min(r[0] for r in runs[1]), workers=workers)
+        x = torch.rand((3 * DS_PHI_BATCH, IMG, IMG, 3), device=dev) * 2 - 1
+        phi_walls = []
+        for _ in range(DS_TIMED + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fe.compute_all_phis(x)
+            phi_walls.append(time.perf_counter() - t0)
+        fps = len(x) / min(phi_walls[1:])
+        print(f"datasets timing [{card}]: phis alone {fps:.1f} frames/s at "
+              f"batch {DS_PHI_BATCH} ({len(x)} crops on the card, fp32 "
+              f"without TF32; best of {DS_TIMED} after one)")
+        out["phi_fps"] = fps
+        del x
+
+        # Into training: the shard (read as a 2-D and, linked, a 3-D
+        # dataset) and mocap records from the port's converter through the
+        # phi-mode pipeline, then one full-width step.
+        os.makedirs(os.path.join(data_dir, "h36m", "train"))
+        os.symlink(shard, os.path.join(data_dir, "h36m", "train",
+                                       "ds.tfrecord"))
+        rng = np.random.RandomState(17)
+        os.makedirs(os.path.join(tmp, "mosh", "CMU"))
+        np.savez(os.path.join(tmp, "mosh", "CMU", "walk.npz"),
+                 poses=rng.randn(500, 72).astype(np.float32) * 0.2,
+                 betas=rng.randn(10).astype(np.float32) * 0.3)
+        write_mocap_records(os.path.join(tmp, "mosh"),
+                            os.path.join(data_dir, "mocap_neutrMosh"), "CMU")
+        config = Config(batch_size=TRAIN_B, T=TRAIN_T, feature_dim=TRAIN_C,
+                        num_kps=SMPL_KPS, use_fused_smpl=True,
+                        data_dir=data_dir,
+                        datasets=("insta_variety", "h36m"),
+                        mocap_datasets=("CMU",))
+        pipe = TrainDataPipeline(config)
+        try:
+            batch = next(iter(pipe))
+        finally:
+            pipe.close()
+        check(batch.phis.shape == (TRAIN_B, TRAIN_T, TRAIN_C),
+              f"datasets: pipeline phis {batch.phis.shape}")
+        tr = Trainer(config, smpl, device=dev)
+        smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME] = 0
+        losses = tr.step(Batch(*[torch.as_tensor(a, device=dev)
+                                 for a in batch]))
+        losses = {k: float(v) for k, v in losses.items()}
+        k1 = smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME]
+        print(f"datasets: the shard through TrainDataPipeline (phi mode) "
+              f"and one Trainer.step (B={TRAIN_B}, T={TRAIN_T}, feature_dim "
+              f"{TRAIN_C}, fused SMPL: K1 launched {k1}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items())))
+        check(all(np.isfinite(v) for v in losses.values()) and k1 == 1,
+              "datasets: the training step on the shard")
+        del tr, batch
+
+        # The 3DPW neutral-shape fit against a known beta: the card's first
+        # FIT_CPU_ITERS steps against the CPU's, then the whole fit.
+        true_beta = (np.random.RandomState(31).randn(10) * 0.5).astype(
+            np.float32)
+        target = smpl_forward(
+            smpl, torch.from_numpy(true_beta)[None].to(dev),
+            torch.zeros((1, 72), device=dev)).verts[0].cpu().numpy()
+        kw = dict(lr=0.05, max_iters=FIT_CPU_ITERS, tol=0.0)
+        cpu_beta = fit_neutral_shape(smpl.to("cpu"), target, device="cpu",
+                                     **kw)[0]
+        card_beta = fit_neutral_shape(smpl, target, device=dev, **kw)[0]
+        early = float(np.abs(card_beta - cpu_beta).max())
+        beta, loss, iters, wall = fit_iterations(
+            torch, fit_neutral_shape, smpl, target, dev, lr=0.05,
+            max_iters=FIT_ITERS)
+        err = float(np.abs(beta - true_beta).max())
+        print(f"datasets: fit_neutral_shape on synthetic_smpl_model("
+              f"{SMPL_VERTS}, {SMPL_KPS}) [{card}]: beta after "
+              f"{FIT_CPU_ITERS} steps {early:.3e} from the CPU's (tol "
+              f"{FIT_CPU_TOL:g}); the fit ran {iters} iterations in "
+              f"{wall:.1f} ms ({wall / iters:.3f} ms per iteration), loss "
+              f"{loss:.3e} (max {FIT_LOSS_MAX:g}), beta {err:.3e} from the "
+              f"truth (tol {FIT_BETA_TOL:g})")
+        check(early <= FIT_CPU_TOL and loss < FIT_LOSS_MAX
+              and err <= FIT_BETA_TOL, "datasets: the neutral-shape fit")
+        out.update(fit_early=early, fit_iters=iters,
+                   fit_ms_per_iter=wall / iters, fit_loss=loss, fit_err=err)
+
+        # A test record of the whole tube (224 crops), read back.
+        rec = os.path.join(tmp, "test.tfrecord")
+        t0 = time.perf_counter()
+        save_seq_to_test_tfrecord(rec, paths, [kps])
+        rec_s = time.perf_counter() - t0
+        data = read_test_example(next(read_tfrecord(rec, check_crc=True)))
+        check(data["N"] == DS_FRAMES and len(data["images"]) == DS_FRAMES
+              and all(im.shape == (224, 224, 3) for im in data["images"]),
+              "datasets: the test record")
+        print(f"datasets: save_seq_to_test_tfrecord of the {DS_FRAMES} "
+              f"frames in {rec_s:.2f} s; read back N = {data['N']}, 224 "
+              f"crops")
+    print(f"phase 17 (datasets): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -3537,6 +3886,9 @@ def main():
 
     # Phase 16: the demo.
     dm = phase_demo(torch, np, dev, model, smpl, K, smpl_cuda, card)
+
+    # Phase 17: the dataset tools.
+    phase_datasets(torch, np, dev, model, smpl, smpl_cuda, card)
 
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [

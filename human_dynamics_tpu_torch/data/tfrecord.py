@@ -13,7 +13,8 @@ the TF runtime. This module implements:
   and unpacked repeated encodings on parse.
 
 CRC32C uses the C-accelerated ``google_crc32c`` when it is installed,
-with a pure-python table fallback.
+else ``crc32c_lanes`` (numpy, all of a record's 256-byte blocks at once;
+``crc32c_bytewise``, a Python loop over the bytes, is its plain version).
 
 Wire-format facts used (protobuf encoding spec):
     Example.features = field 1 (LEN); Features.feature = field 1 (LEN,
@@ -30,6 +31,84 @@ from typing import Dict, Iterator, List, Union
 
 import numpy as np
 
+_CRC_POLY = 0x82F63B78  # CRC-32C (Castagnoli), reflected
+_LANE = 256             # bytes of a block in crc32c_lanes
+
+
+def _crc_byte_table() -> np.ndarray:
+    t = np.arange(256, dtype=np.uint32)
+    for _ in range(8):
+        t = np.where(t & 1, (t >> 1) ^ np.uint32(_CRC_POLY), t >> 1)
+    return t.astype(np.uint32)
+
+
+_CRC_TABLE = _crc_byte_table()
+_CRC_TABLE_LIST = _CRC_TABLE.tolist()
+
+
+def _crc_update(crc: int, data: bytes) -> int:
+    """The CRC-32C register after ``data``, one byte at a time."""
+    table = _CRC_TABLE_LIST
+    for b in data:
+        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    return crc
+
+
+def crc32c_bytewise(data: bytes) -> int:
+    """CRC-32C of ``data``, a table lookup per byte (the plain version)."""
+    return _crc_update(0xFFFFFFFF, data) ^ 0xFFFFFFFF
+
+
+def _gf2_apply(cols: np.ndarray, x) -> np.ndarray:
+    """The GF(2) 32x32 matrix with columns ``cols`` (the images of bits
+    0-31) applied to each uint32 of ``x``."""
+    x = np.asarray(x, np.uint32)
+    out = np.zeros_like(x)
+    for k in range(32):
+        out ^= np.where((x >> k) & 1, cols[k], np.uint32(0))
+    return out
+
+
+def _zero_shift_cols(nbytes_log2: int) -> np.ndarray:
+    """Columns of the linear map that runs a CRC register over
+    2**nbytes_log2 zero bytes."""
+    bits = np.left_shift(np.uint32(1), np.arange(32, dtype=np.uint32))
+    cols = _CRC_TABLE[bits & 0xFF] ^ (bits >> 8)    # one zero byte
+    for _ in range(nbytes_log2):
+        cols = _gf2_apply(cols, cols)
+    return cols
+
+
+_LANE_SHIFT = _zero_shift_cols(_LANE.bit_length() - 1)
+
+
+def crc32c_lanes(data: bytes) -> int:
+    """CRC-32C of ``data`` with numpy: the bytes before a whole number of
+    _LANE-byte blocks one at a time, then every block's register from 0
+    at once (one table lookup per byte column), then the blocks' registers
+    combined pairwise. The register is affine in its start: running it
+    over a block B from s gives Z_B(s) ^ (the register over B from 0),
+    with Z_B the linear map of len(B) zero bytes."""
+    buf = np.frombuffer(data, np.uint8)
+    n_blocks = len(buf) // _LANE
+    head = len(buf) - n_blocks * _LANE
+    state = _crc_update(0xFFFFFFFF, buf[:head].tobytes())
+    if n_blocks:
+        regs = np.zeros(n_blocks, np.uint32)
+        for column in np.ascontiguousarray(
+                buf[head:].reshape(n_blocks, _LANE).T):
+            regs = _CRC_TABLE[(regs ^ column) & 0xFF] ^ (regs >> 8)
+        shift, acc = _LANE_SHIFT, np.uint32(state)
+        while len(regs):
+            if len(regs) % 2:
+                acc = _gf2_apply(shift, acc) ^ regs[0]
+                regs = regs[1:]
+            regs = _gf2_apply(shift, regs[0::2]) ^ regs[1::2]
+            shift = _gf2_apply(shift, shift)
+        state = int(acc)
+    return state ^ 0xFFFFFFFF
+
+
 try:
     import google_crc32c
 
@@ -37,23 +116,7 @@ try:
         return google_crc32c.value(data)
 
 except ImportError:  # pragma: no cover - fallback
-    _CRC_TABLE = None
-
-    def _crc32c(data: bytes) -> int:
-        global _CRC_TABLE
-        if _CRC_TABLE is None:
-            poly = 0x82F63B78
-            table = []
-            for i in range(256):
-                crc = i
-                for _ in range(8):
-                    crc = (crc >> 1) ^ (poly if crc & 1 else 0)
-                table.append(crc)
-            _CRC_TABLE = table
-        crc = 0xFFFFFFFF
-        for b in data:
-            crc = _CRC_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
-        return crc ^ 0xFFFFFFFF
+    _crc32c = crc32c_lanes
 
 
 def _masked_crc(data: bytes) -> int:
