@@ -182,6 +182,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    100 Adam steps within 1e-4 of the CPU's; the fit within 0.05 of the
    beta with loss < 1e-4, its iterations and ms per iteration); a test
    record of the 150 frames read back (224 crops, N = 150).
+18. 2-D (data x time) and tensor-parallel training, at full width (phase
+   15's phi fp32 fused configuration and image (b)): first world 1 on NCCL
+   in this process, a Trainer on make_mesh_2d(1, 1) with shard_batch_2d
+   and one on make_mesh_tp(1, 1) after shard_params_tp, each against the
+   plain Trainer.step from the same state and batch for 2 steps, in turns
+   (losses within DP_LOSS_RTOL, the first step's gradients within
+   TRAIN_GRAD_REL per parameter; K1 once per step on each path, its count
+   set to 0 just before each path's step and read just after), and the
+   three timed in turns. Then two ranks sharing the card over gloo as
+   subprocesses (--sharded-worker): 2 phi steps on a 1x2 2-D mesh (K1 at
+   N = 320 on each rank) and 2 on a 1x2 TP mesh (N = 640), the ranks'
+   states (a TP state gathered whole) equal after each step, rank 0
+   against the world-1 step on the global batch, K1 held to its plain
+   version on each rank's operands; one image (b) 1x2 2-D step by phase
+   15's bf16 rules. K1 at the 2-D and TP ranks' N against its plain
+   version, timed in turns, with its bound.
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -304,6 +320,13 @@ DP_WORLD1_RTOL, DP_WORLD1_STATE_REL, DP_WORLD1_GRAD_REL = 1e-6, 1e-5, 1e-4
 DP_LOSS_RTOL = 1e-5
 DP_BF16_LOSS_RTOL = 2e-3
 DP_BF16_GRAD_FACTOR, DP_BF16_GRAD_FLOOR = 2.0, 1e-3
+# Phase 18: 2-D and TP training, phase 15's phi and image (b)
+# configurations. World 1 on NCCL against the plain step: the 2-D path's
+# convs are three matmuls and its GroupNorm's variance one pass, and a TP
+# layer adds its bias after the matmul, so the bounds are DP_LOSS_RTOL
+# and TRAIN_GRAD_REL, not bit equality; two gloo ranks by phase 15's rules.
+SHARDED_STEPS = 2
+SHARDED_TIMED = 3
 # Phase 16: the demo. One person walking through DEMO_FRAMES frames of
 # DEMO_H x DEMO_W, not detected in DEMO_MISSING (interpolated bboxes). The
 # card's float32 crops against the CPU's within a float32 ulp at 1 (the
@@ -2783,19 +2806,25 @@ def dp_world1(torch, np, dev, smpl, K, smpl_cuda, card):
     return out
 
 
-def dp_rank_phi(torch, dev, mesh, smpl, K, smpl_cuda, tag):
+def dp_rank_phi(torch, dev, mesh, smpl, K, smpl_cuda, tag, shard=None,
+                tp=False):
     """Two-rank phi steps: every rank equal after each, rank 0 against the
     world-1 (plain) step on the global batch, K1 once per rank per step at
-    the rank's N and held to its plain version."""
+    the rank's N and held to its plain version. `shard` cuts the rank's
+    block (parallel.shard_batch by default); with `tp` the state is
+    shard_params_tp'ed first, and the ranks' states and rank 0's gradients
+    are compared whole (parallel.gathered_tp, on every rank)."""
     from human_dynamics_tpu_torch import parallel
     from human_dynamics_tpu_torch.train.trainer import Trainer
 
     name = "phi fp32 fused"
     config = dp_configs()[name]
     batch = dp_batch(torch, name, config, dev)
-    block = parallel.shard_batch(batch, mesh)
+    block = (shard or parallel.shard_batch)(batch, mesh)
     lead = mesh.rank == 0
     dp = Trainer(config, smpl, device=dev, mesh=mesh)
+    if tp:
+        dp.state = parallel.shard_params_tp(dp.state, mesh)
     ref = Trainer(config, smpl, device=dev) if lead else None
     res = {"rank_diff": [], "loss_err": 0.0}
     calls, launches = [], 0
@@ -2806,7 +2835,10 @@ def dp_rank_phi(torch, dev, mesh, smpl, K, smpl_cuda, tag):
             torch.cuda.synchronize()
         calls += rec.calls
         launches += smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME]
-        diff = max_rank_difference(torch, dp.state_tensors(), mesh)
+        with parallel.gathered_tp(dp.state):
+            diff = max_rank_difference(torch, dp.state_tensors(), mesh)
+            summed = ([(n, p.grad.clone()) for n, p in named_parameters(dp)]
+                      if lead and step == 0 else None)
         res["rank_diff"].append(diff)
         check(diff == 0.0, f"{tag} {name} step {step}: the ranks differ by "
               f"{diff}")
@@ -2817,17 +2849,18 @@ def dp_rank_phi(torch, dev, mesh, smpl, K, smpl_cuda, tag):
             res["loss_err"] = max(res["loss_err"], err)
             check(err <= DP_LOSS_RTOL, f"{tag} {name} step {step}: losses "
                   f"{err} from the world-1 step")
-            if step == 0:
-                grads = {n: rel_l2(p.grad, q.grad) for (n, p), (_, q) in zip(
-                    named_parameters(dp), named_parameters(ref))}
-                worst = max(grads, key=grads.get)
-                res["grad_err"] = grads[worst]
-                check(grads[worst] <= TRAIN_GRAD_REL, f"{tag} {name}: the "
-                      f"summed gradient of {worst} is {grads[worst]} from "
-                      "the world-1 one")
+        if summed is not None:
+            grads = {n: rel_l2(g, q.grad) for (n, g), (_, q) in zip(
+                summed, named_parameters(ref))}
+            del summed
+            worst = max(grads, key=grads.get)
+            res["grad_err"] = grads[worst]
+            check(grads[worst] <= TRAIN_GRAD_REL, f"{tag} {name}: the "
+                  f"summed gradient of {worst} is {grads[worst]} from "
+                  "the world-1 one")
     k1_n = [args[0].shape[0] for _, args, _ in calls]
-    check(launches == DP_RANK_STEPS
-          and k1_n == [TRAIN_N // mesh.size] * DP_RANK_STEPS,
+    rank_n = TRAIN_N // mesh.axis_size(mesh.batch_axes)
+    check(launches == DP_RANK_STEPS and k1_n == [rank_n] * DP_RANK_STEPS,
           f"{tag}: K1 launched {launches} times at N = {k1_n} over "
           f"{DP_RANK_STEPS} steps")
     planes = max(max(max_abs(a, b) for a, b in zip(
@@ -2838,10 +2871,10 @@ def dp_rank_phi(torch, dev, mesh, smpl, K, smpl_cuda, tag):
     return res
 
 
-def dp_rank_image(torch, dev, mesh, smpl, tag):
-    """One two-rank step of image (b): every rank equal, and rank 0
-    against the world-1 bf16 step and its fp32 counterpart on the global
-    batch."""
+def dp_rank_image(torch, dev, mesh, smpl, tag, shard=None):
+    """One two-rank step of image (b) on the rank's block (`shard`,
+    parallel.shard_batch by default): every rank equal, and rank 0 against
+    the world-1 bf16 step and its fp32 counterpart on the global batch."""
     import dataclasses
 
     from human_dynamics_tpu_torch import parallel
@@ -2851,7 +2884,7 @@ def dp_rank_image(torch, dev, mesh, smpl, tag):
     config = dp_configs()[name]
     batch = dp_batch(torch, name, config, dev)
     dp = Trainer(config, smpl, device=dev, mesh=mesh)
-    got = dp.step(parallel.shard_batch(batch, mesh))
+    got = dp.step((shard or parallel.shard_batch)(batch, mesh))
     torch.cuda.synchronize()
     diff = max_rank_difference(torch, dp.state_tensors(), mesh)
     check(diff == 0.0, f"{tag} {name}: the ranks differ by {diff}")
@@ -3694,6 +3727,224 @@ def phase_datasets(torch, np, dev, model, smpl, smpl_cuda, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: 2-D (data x time) and tensor-parallel training
+# ---------------------------------------------------------------------------
+
+
+def sharded_world1(torch, dev, smpl, smpl_cuda, card):
+    """World 1 on NCCL: a 1x1 2-D Trainer and a 1x1 TP Trainer against the
+    plain one from the same state and batch, SHARDED_STEPS steps each, in
+    turns (the losses of each step, the first step's gradients); K1's
+    launches and operands on each path (the counts set to 0 just before
+    each path's steps and read just after); then the three timed in turns.
+    """
+    import torch.distributed as dist
+
+    from human_dynamics_tpu_torch import parallel
+    from human_dynamics_tpu_torch.train.trainer import Trainer
+
+    name = "phi fp32 fused"
+    config = dp_configs()[name]
+    batch = dp_batch(torch, name, config, dev)
+    k1 = smpl_cuda.KERNEL_NAME
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        meshes = {"2d": parallel.make_mesh_2d(1, 1, device=dev),
+                  "tp": parallel.make_mesh_tp(1, 1, device=dev)}
+        trainers = {"plain": Trainer(config, smpl, device=dev)}
+        trainers.update({p: Trainer(config, smpl, device=dev, mesh=m)
+                         for p, m in meshes.items()})
+        trainers["tp"].state = parallel.shard_params_tp(
+            trainers["tp"].state, meshes["tp"])
+        blocks = {"plain": batch,
+                  "2d": parallel.shard_batch_2d(batch, meshes["2d"]),
+                  "tp": parallel.shard_batch(batch, meshes["tp"])}
+        out = {"launches": {}, "n": {}, "ops": {}, "loss_err": {},
+               "grad_err": {}}
+        metrics, grads = {}, {}
+        for step in range(SHARDED_STEPS):
+            for p in ("plain", "2d", "tp"):
+                smpl_cuda.LAUNCHES[k1] = 0
+                with Recorder(smpl_cuda, ["blend_skin"]) as rec:
+                    m = trainers[p].step(blocks[p])
+                    torch.cuda.synchronize()
+                out["launches"][p] = (out["launches"].get(p, 0)
+                                      + smpl_cuda.LAUNCHES[k1])
+                out["n"][p] = [a[0].shape[0] for _, a, _ in rec.calls]
+                out["ops"][p] = rec.calls[-1][1]
+                metrics.setdefault(p, []).append(
+                    {k: float(v) for k, v in m.items()})
+                if step == 0:
+                    grads[p] = {n: q.grad.clone()
+                                for n, q in named_parameters(trainers[p])}
+        for p in meshes:
+            out["loss_err"][p] = max(
+                abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                for g, w in zip(metrics[p], metrics["plain"]) for k in w)
+            errs = {n: rel_l2(g, grads["plain"][n])
+                    for n, g in grads[p].items()}
+            worst = max(errs, key=errs.get)
+            out["grad_err"][p] = (errs[worst], worst)
+            check(out["launches"][p] == SHARDED_STEPS
+                  and out["n"][p] == [TRAIN_N],
+                  f"sharded world 1 {p}: K1 launched "
+                  f"{out['launches'][p]} times in {SHARDED_STEPS} steps at "
+                  f"N = {out['n'][p]}")
+            check(out["loss_err"][p] <= DP_LOSS_RTOL
+                  and errs[worst] <= TRAIN_GRAD_REL,
+                  f"sharded world 1 {p}: losses {out['loss_err'][p]}, the "
+                  f"gradient of {worst} {errs[worst]} from the plain step")
+        del grads
+        times = {p: [] for p in trainers}
+        for p in ["plain", "2d", "tp", "tp", "2d", "plain"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SHARDED_TIMED):
+                trainers[p].step(blocks[p])
+            torch.cuda.synchronize()
+            times[p].append((time.perf_counter() - t0) * 1e3 / SHARDED_TIMED)
+        out["ms"] = {p: min(v) for p, v in times.items()}
+        if PROFILE:
+            for p in trainers:
+                profile_run(torch, f"sharded world 1, {p} step",
+                            lambda p=p: trainers[p].step(blocks[p]))
+        print(f"sharded world 1 (nccl), {name}, global B={config.batch_size}"
+              f" T={config.T}: against the plain Trainer.step from the same "
+              f"state, {SHARDED_STEPS} steps: largest relative loss error "
+              f"2-D {out['loss_err']['2d']:.3e}, TP "
+              f"{out['loss_err']['tp']:.3e} (bound {DP_LOSS_RTOL:g}); first "
+              f"step's gradients, worst parameter's relative L2: 2-D "
+              f"{out['grad_err']['2d'][0]:.3e} ({out['grad_err']['2d'][1]}),"
+              f" TP {out['grad_err']['tp'][0]:.3e} "
+              f"({out['grad_err']['tp'][1]}) (bound {TRAIN_GRAD_REL:g}); K1 "
+              f"{out['launches']} launches at N = {out['n']}")
+        print(f"smoke timing (not a benchmark) [{card}]: sharded world 1, "
+              f"ms/step (host clock + synchronise, best of 2 turns of "
+              f"{SHARDED_TIMED} steps, in turns plain, 2d, tp, tp, 2d, "
+              f"plain): plain {out['ms']['plain']:.2f}, 2-D "
+              f"{out['ms']['2d']:.2f}, TP {out['ms']['tp']:.2f} (all {times})")
+        del trainers, blocks
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def sharded_rank(torch, dev, rank, world, url, out_path):
+    """One rank of phase 18's two-rank group sharing the card over gloo: a
+    1 x world 2-D phi run and a 1 x world TP phi run (dp_rank_phi with
+    shard_batch_2d / shard_params_tp), then one image (b) 2-D step
+    (dp_rank_image with shard_batch_2d); writes its results to out_path."""
+    import torch.distributed as dist
+
+    from human_dynamics_tpu_torch import parallel
+    from human_dynamics_tpu_torch.core import synthetic_smpl_model
+    from human_dynamics_tpu_torch.ops import resnet_int8_cuda as K
+    from human_dynamics_tpu_torch.ops import smpl_cuda
+
+    parallel.initialize_multihost(
+        {"HD_TPU_COORDINATOR": url, "HD_TPU_NUM_PROCESSES": str(world),
+         "HD_TPU_PROCESS_ID": str(rank)}, device=dev, backend="gloo")
+    try:
+        mesh_2d = parallel.make_mesh_2d(1, world, device=dev)
+        mesh_tp = parallel.make_mesh_tp(1, world, device=dev)
+        tag = f"sharded world {world} (gloo) rank {rank}"
+        smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS,
+                                    device=dev)
+        t0 = time.perf_counter()
+        res = {"2d": dp_rank_phi(torch, dev, mesh_2d, smpl, K, smpl_cuda,
+                                 tag + " 2-D", shard=parallel.shard_batch_2d)}
+        torch.cuda.empty_cache()
+        res["tp"] = dp_rank_phi(torch, dev, mesh_tp, smpl, K, smpl_cuda,
+                                tag + " TP", tp=True)
+        torch.cuda.empty_cache()
+        res["image"] = dp_rank_image(torch, dev, mesh_2d, smpl,
+                                     tag + " 2-D",
+                                     shard=parallel.shard_batch_2d)
+        res["steps_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def sharded_worker(argv):
+    """Entry of a phase-18 rank: chip_smoke.py --sharded-worker RANK WORLD
+    URL OUT."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, HERE)
+    rank, world, url, out_path = argv
+    dev = torch.device("cuda", int(rank) % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    sharded_rank(torch, dev, int(rank), int(world), url, out_path)
+
+
+def phase_sharded(torch, dev, smpl, smpl_cuda, card):
+    """Phase 18: 2-D and tensor-parallel training at full width. World 1
+    on NCCL in this process; two ranks sharing the card over gloo as
+    subprocesses; K1 at each path's N against its plain version, timed in
+    turns, with its bound."""
+    t_phase = time.perf_counter()
+    res = {"world1": sharded_world1(torch, dev, smpl, smpl_cuda, card)}
+    ranks, wall = run_rank_group(2, "--sharded-worker", [],
+                                 "sharded world 2 (gloo)")
+    lead = ranks[0]
+    print(f"sharded world 2 (gloo, one card): every rank passed in "
+          f"{wall:.1f} s ({lead['steps_s']:.1f} s of steps); "
+          + "; ".join(
+              f"{p}: {DP_RANK_STEPS} phi steps, ranks equal after each "
+              f"({[r[p]['rank_diff'] for r in ranks]}), losses "
+              f"{lead[p]['loss_err']:.3e} from the world-1 step (bound "
+              f"{DP_LOSS_RTOL:g}), summed gradients "
+              f"{lead[p]['grad_err']:.3e} (relative L2, worst parameter; "
+              f"bound {TRAIN_GRAD_REL:g}); K1 at N = "
+              f"{[r[p]['k1_n'] for r in ranks]}, planes within "
+              f"{max(r[p]['k1_err'] for r in ranks):.3e} of plain"
+              for p in ("2d", "tp"))
+          + f"; image (b) 2-D: ranks equal "
+          f"({[r['image']['rank_diff'] for r in ranks]}), losses up to "
+          f"{lead['image']['loss_vs_world1']:.3e} from the world-1 bf16 "
+          f"step's; from the world-1 fp32 step, the two-rank / world-1 bf16"
+          f" losses up to {lead['image']['loss_err']:.3e} / "
+          f"{lead['image']['loss_bf16']:.3e}, the HMMR gradient "
+          f"{lead['image']['grad_err_e']:.3e} / "
+          f"{lead['image']['grad_bf16_e']:.3e}, the discriminator's "
+          f"{lead['image']['grad_err_d']:.3e} / "
+          f"{lead['image']['grad_bf16_d']:.3e}")
+    # K1 at each path's N: the 2-D rank's (two time ranks) and the TP
+    # rank's (every model rank decodes its data row's rows); the operands
+    # of the world-1 TP step at N = TRAIN_N, seeded draws at the 2-D N.
+    consts = smpl_cuda.prepare_fused_constants(smpl)
+    g = torch.Generator(device=dev).manual_seed(18)
+    n_2d = lead["2d"]["k1_n"][0]
+    ops = {"2d": k1_operands(
+        smpl, consts, torch.randn(n_2d, 10, generator=g, device=dev) * 0.3,
+        torch.randn(n_2d, 72, generator=g, device=dev) * 0.3),
+        "tp": res["world1"]["ops"]["tp"]}
+    res["k1"] = {}
+    for p, o in ops.items():
+        n = o[0].shape[0]
+        err = max(max_abs(a, b) for a, b in zip(
+            smpl_cuda.blend_skin(*o), smpl_cuda.blend_skin_reference(*o)))
+        check(err <= K1_PLANES_TOL, f"sharded: K1 planes at N = {n}: {err}")
+        k_ms, p_ms = k1_in_turns(torch, o)
+        b_ms, b_by = k1_bound(smpl_cuda, n)[:2]
+        res["k1"][p] = {"n": n, "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "err": err}
+        print(f"K1 N={n} V={SMPL_VERTS} (a {p} rank's rows of a 1x2 "
+              f"step): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); planes within {err:.3e} of plain")
+    res["world2"] = ranks
+    print(f"phase 18 (2-D and TP training) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main():
     import numpy as np
     import torch
@@ -3890,6 +4141,9 @@ def main():
     # Phase 17: the dataset tools.
     phase_datasets(torch, np, dev, model, smpl, smpl_cuda, card)
 
+    # Phase 18: 2-D (data x time) and tensor-parallel training.
+    sh = phase_sharded(torch, dev, smpl, smpl_cuda, card)
+
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [
         dict(name=smpl_cuda.KERNEL_NAME, source=csrc + "smpl_blend_skin.cu",
@@ -3906,6 +4160,14 @@ def main():
              dp_bound_ms=dp["k1"]["bound_ms"], demo_launches=dm["launches"],
              demo_tracks=dm["tracks"], demo_n=dm["n"], demo_ms=dm["ms"],
              demo_plain_ms=dm["plain_ms"], demo_bound_ms=dm["bound_ms"],
+             mesh2d_launches=sh["world1"]["launches"]["2d"],
+             mesh2d_n=sh["k1"]["2d"]["n"], mesh2d_ms=sh["k1"]["2d"]["ms"],
+             mesh2d_plain_ms=sh["k1"]["2d"]["plain_ms"],
+             mesh2d_bound_ms=sh["k1"]["2d"]["bound_ms"],
+             tp_launches=sh["world1"]["launches"]["tp"],
+             tp_n=sh["k1"]["tp"]["n"], tp_ms=sh["k1"]["tp"]["ms"],
+             tp_plain_ms=sh["k1"]["tp"]["plain_ms"],
+             tp_bound_ms=sh["k1"]["tp"]["bound_ms"],
              **k1),
         dict(name=K.BLOCK, source=csrc + "k2_unit.cu",
              replaces="human_dynamics_tpu/ops/resnet_int8_pallas.py:151",
@@ -3926,14 +4188,19 @@ def main():
     # launches over the world-1 DP steps, one per step, and its times at a
     # rank's N of a two-rank step); and on the --fast demo (phase 16: its
     # launches over the --fast tracks, one per track, and its times at the
-    # track's N).
+    # track's N); on the 2-D and TP steps (phase 18: its launches over the
+    # world-1 steps of each, one per step, and its times at the N of a
+    # rank of the two-rank 2-D and TP steps).
     train_keys = ("train_launches", "train_steps", "train_n", "train_ms",
                   "train_plain_ms", "train_bound_ms", "image_train_launches",
                   "image_train_steps", "sharded_launches", "sharded_n",
                   "dp_launches", "dp_steps", "dp_rank_n", "dp_ms",
                   "dp_plain_ms", "dp_bound_ms", "demo_launches",
                   "demo_tracks", "demo_n", "demo_ms", "demo_plain_ms",
-                  "demo_bound_ms", "byte_floor_ms", "conv_chain_ms")
+                  "demo_bound_ms", "mesh2d_launches", "mesh2d_n",
+                  "mesh2d_ms", "mesh2d_plain_ms", "mesh2d_bound_ms",
+                  "tp_launches", "tp_n", "tp_ms", "tp_plain_ms",
+                  "tp_bound_ms", "byte_floor_ms", "conv_chain_ms")
     print(json.dumps({"kernels": [
         {k: dict(kern, route="cuda")[k] for k in keys
          + tuple(k for k in train_keys if k in kern)} for kern in kernels
@@ -3949,5 +4216,7 @@ if __name__ == "__main__":
         mesh_worker(sys.argv[2:])
     elif sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--sharded-worker"]:
+        sharded_worker(sys.argv[2:])
     else:
         main()

@@ -10,10 +10,16 @@ the camera [1, 0, 0] and the starting beta re-attached.
 of every head and branch applies dropout with masks from ``g``, and on
 images the ResNet's BatchNorm normalises with the batch's statistics
 (unless ``freeze_bn_stats``); its moving averages advance only inside
-``models.resnet.updating_batch_stats``. ``mesh`` (a data mesh) makes that
-step this rank's part of a data-parallel one: the BatchNorm statistics are
-those of every rank's frames and the dropout masks those of the global
-batch (``models.ief.RowBlock``).
+``models.resnet.updating_batch_stats``. ``mesh`` makes that step this
+rank's part of a sharded one: the BatchNorm statistics are those of every
+rank's frames and the dropout masks those of the global batch
+(``models.ief.RowBlock``). On a (data, time) mesh the rank holds a block of
+each tube's frames, and the temporal encoder is the halo one
+(``parallel.halo.temporal_encoder_sharded``: each conv takes its
+neighbours' edge frames, each GroupNorm the whole clip's statistics); the
+IEF heads and the hallucinator are per frame and stay local. On a (data,
+model) mesh every model rank holds the same rows, and the wide layers are
+``parallel.tp``'s.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from human_dynamics_tpu_torch.models.ief import (
 from human_dynamics_tpu_torch.models.omega import OMEGA_DIM
 from human_dynamics_tpu_torch.models.resnet import ResNetV2_50
 from human_dynamics_tpu_torch.models.temporal import TemporalEncoderFC2GN
-from human_dynamics_tpu_torch.parallel.mesh import DATA_AXIS
+from human_dynamics_tpu_torch.parallel.halo import temporal_encoder_sharded
+from human_dynamics_tpu_torch.parallel.mesh import DATA_AXIS, TIME_AXIS
 
 
 def default_mean_omega() -> np.ndarray:
@@ -208,10 +215,14 @@ class HmmrModel(nn.Module):
                 mesh=None) -> HmmrOutputs:
         """``train`` turns the IEF dropout on, with masks drawn from
         ``generator``, and the ResNet's batch-statistics BatchNorm; with a
-        data ``mesh`` both span the global batch."""
+        ``mesh`` both span the global batch, and a ``time`` axis shards
+        the temporal encoder."""
+        time_sharded = mesh is not None and TIME_AXIS in mesh.shape
         if mesh is not None and generator is not None:
-            generator = RowBlock(generator, mesh.index(DATA_AXIS),
-                                 mesh.shape[DATA_AXIS])
+            generator = RowBlock(
+                generator, mesh.index(DATA_AXIS), mesh.shape[DATA_AXIS],
+                inputs.shape[1], mesh.coords.get(TIME_AXIS, 0),
+                mesh.shape.get(TIME_AXIS, 1))
         if inputs.dim() == 5:
             if not self.include_resnet:
                 raise ValueError("Model built without resnet but got image input")
@@ -219,7 +230,13 @@ class HmmrModel(nn.Module):
         else:
             phi = inputs
 
-        movie_strip = phi if self.use_hmr_only else self.temporal_encoder(phi)
+        if self.use_hmr_only:
+            movie_strip = phi
+        elif time_sharded:
+            movie_strip = temporal_encoder_sharded(self.temporal_encoder, phi,
+                                                   mesh, TIME_AXIS)
+        else:
+            movie_strip = self.temporal_encoder(phi)
         omega_pred, omegas_delta = self._pred_heads(
             movie_strip, self.predict_delta, train, generator
         )

@@ -11,7 +11,10 @@ mask per layer and per stage call, as flax draws one per ``nn.Dropout``
 call. Kept values are scaled by 1 / keep, as flax does. Under data
 parallelism the generator comes as a ``RowBlock``: each mask is drawn at
 the global batch's shape and this rank keeps its rows, so the ranks
-together apply the masks of the single-process step.
+together apply the masks of the single-process step. On a (data, time)
+mesh a rank's rows are a (data, time) block of the (B, T) grid, not a
+contiguous run of the b·T rows: the mask is drawn at (B, T, ...) and the
+block kept.
 """
 
 from __future__ import annotations
@@ -26,13 +29,18 @@ from human_dynamics_tpu_torch.models.init import xavier_uniform_
 
 
 class RowBlock(NamedTuple):
-    """A dropout generator of a data-parallel step: every rank draws each
-    mask at the global shape, ``parts`` times the rows it holds, in the
-    same order, and keeps the rows of block ``index``."""
+    """A dropout generator of a sharded step: every rank draws each mask at
+    the global shape, in the same order, and keeps its block. The rows are
+    the (B, T) grid flattened; the rank holds block ``index`` of ``parts``
+    along B and block ``time_index`` of ``time_parts`` along T, ``frames``
+    frames of each of its tubes."""
 
     generator: torch.Generator
     index: int
     parts: int
+    frames: int
+    time_index: int
+    time_parts: int
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -41,10 +49,13 @@ def dropout(x: torch.Tensor, rate: float,
     and scale it by 1 / (1 - rate); the mask comes from ``generator``."""
     keep = 1.0 - rate
     if isinstance(generator, RowBlock):
-        n = x.shape[0]
-        draws = torch.rand((n * generator.parts,) + x.shape[1:],
-                           generator=generator.generator, device=x.device)
-        mask = draws[generator.index * n:(generator.index + 1) * n] < keep
+        g, rest = generator, x.shape[1:]
+        bl, tl = x.shape[0] // g.frames, g.frames
+        draws = torch.rand((bl * g.parts, tl * g.time_parts) + rest,
+                           generator=g.generator, device=x.device)
+        block = draws[g.index * bl:(g.index + 1) * bl,
+                      g.time_index * tl:(g.time_index + 1) * tl]
+        mask = block.reshape(x.shape) < keep
     else:
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -130,6 +130,13 @@ class OmegaGt(NamedTuple):
         return cls(poses_aa=poses_aa, poses_rot=rodrigues(poses_aa),
                    shapes=shapes, joints=joints, kps=kps)
 
+    def at_frames(self, index) -> "OmegaGt":
+        """The bundle at frames ``index`` (a slice or an index tensor) of
+        every sequence; the per-sequence shapes as they are."""
+        return OmegaGt(self.poses_aa[:, index], self.poses_rot[:, index],
+                       self.shapes, self.joints[:, index],
+                       self.kps[:, index])
+
     def shapes_tiled(self, t: int) -> torch.Tensor:
         """(B, 10) -> (B, T, 10)."""
         return self.shapes[:, None, :].expand(self.shapes.shape[0], t,

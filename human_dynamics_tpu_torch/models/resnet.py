@@ -19,8 +19,9 @@ slim layout needs, kept exactly:
   them again.
 - ``remat`` checkpoints each bottleneck unit (``nn.remat`` in the JAX
   package): only unit inputs are kept for the backward.
-- With a data ``mesh``, train-mode BatchNorm normalises with the statistics
-  of every rank's frames, as GSPMD makes them: each rank's fp32 mean and
+- With a ``mesh``, train-mode BatchNorm normalises with the statistics of
+  the frames of every rank along its batch axes (``data``, and ``time`` on a
+  (data, time) mesh), as GSPMD makes them: each rank's fp32 mean and
   biased variance go to every rank in one ``parallel.mesh.psum``, which
   every rank combines alike (the global mean, then the mean of the squared
   deviations from it); the backward sums their gradients over the ranks in
@@ -48,7 +49,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from human_dynamics_tpu_torch.models.init import lecun_normal_
-from human_dynamics_tpu_torch.parallel.mesh import DATA_AXIS, psum
+from human_dynamics_tpu_torch.parallel.mesh import psum
 
 RESNET50_BLOCKS = ((3, 256, 64), (4, 512, 128), (6, 1024, 256), (3, 2048, 512))
 
@@ -127,17 +128,19 @@ class _Variance(torch.autograd.Function):
 
 
 def _global_moments(mean: torch.Tensor, var: torch.Tensor, mesh):
-    """The fp32 mean and biased variance of every rank's frames from each
-    rank's own (every rank holds as many frames), by one ``psum`` of every
-    rank's pair placed in its row of a zeroed (ranks, 2, C) buffer: the
+    """The fp32 mean and biased variance of the frames of every rank along
+    the mesh's batch axes from each rank's own (every rank holds as many
+    frames), by one ``psum`` of every rank's pair placed in its row of a
+    zeroed (ranks, 2, C) buffer: the
     global mean, then the mean of the squared deviations from it (each
     rank's variance plus its mean's squared distance from the global one),
     summed in rank order on every rank. With one rank they are ``mean`` and
     ``var`` unchanged."""
-    world = mesh.shape[DATA_AXIS]
+    axes = mesh.batch_axes
+    world = mesh.axis_size(axes)
     rows = torch.zeros((world, 2) + mean.shape, device=mean.device)
-    rows[mesh.index(DATA_AXIS)] = torch.stack([mean.float(), var.float()])
-    m, v = psum(rows, mesh, DATA_AXIS).unbind(1)
+    rows[mesh.index(axes)] = torch.stack([mean.float(), var.float()])
+    m, v = psum(rows, mesh, axes).unbind(1)
     g_mean = (m * (1.0 / world)).sum(0)
     g_var = ((v + (m - g_mean) ** 2) * (1.0 / world)).sum(0)
     return g_mean, g_var

@@ -5,8 +5,11 @@ from human_dynamics_tpu_torch.parallel.mesh import (
     make_mesh_tp,
     shard_batch,
     shard_batch_2d,
-    shard_params_tp,
     replicate,
+)
+from human_dynamics_tpu_torch.parallel.tp import (
+    gathered as gathered_tp,
+    shard_params_tp,
 )
 from human_dynamics_tpu_torch.parallel.multihost import (
     initialize as initialize_multihost,

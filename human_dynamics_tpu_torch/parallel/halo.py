@@ -8,24 +8,36 @@ takes a 1-frame halo from each neighbour, and each GroupNorm takes its
 statistics over the whole clip, so the sharded encoder computes the
 unsharded full-clip forward, not the windowed approximation.
 
-Collectives, all over the axis row of the rank (``parallel.mesh``):
+Collectives, all over the axis row of the rank (``parallel.mesh``), each a
+``psum``, so that autograd differentiates them and one implementation
+serves inference and training:
 - a halo is one ``all_reduce`` of a zeroed (ranks, 2, ..., C) buffer into
   which each rank writes its first and last frame; the first rank takes
   zeros from the left, the last from the right (the unsharded conv's zero
-  padding);
+  padding). Its backward sends each halo frame's gradient back to the rank
+  that owns the frame;
 - a GroupNorm's sums, sums of squares and frame counts are one
-  ``all_reduce``;
+  ``all_reduce``; the backward sums their gradients over the row;
 - the outputs come back whole by ``parallel.mesh.assemble``.
 
+Every rank builds the same autograd graph (a missing neighbour's halo is
+the neighbour slot times 0, not a different op), so the backward's
+collectives come in one order on every rank.
+
 The arithmetic is the JAX package's, not ``F.group_norm``'s or
-``nn.Conv1d``'s: the variance in one pass, sumsq/count - mean^2, and the
-conv as three matmuls and a bias. It runs with TF32 off. The encoder reads
-the port's ``TemporalEncoderFC2GN`` parameters: a Conv1d weight is
-(cout, cin, 3), so tap j is ``weight[:, :, j].T``.
+``nn.Conv1d``'s: the variance in one pass, sumsq/count - mean^2 (flax's
+``use_fast_variance``), and the conv as three matmuls and a bias. The
+inference paths run it with TF32 off. The encoder reads the port's
+``TemporalEncoderFC2GN`` parameters: a Conv1d weight is (cout, cin, 3), so
+tap j is ``weight[:, :, j].T``. As the module's GroupNorm, the statistics
+and the normalisation are fp32 and the result takes the input's dtype.
 
 Padding frames (a clip that does not divide the axis) are left out of the
 statistics and zeroed on output, so they act as the clip edge's zero
 padding.
+
+``temporal_encoder_sharded`` is also 2-D training's encoder: (Bl, Tl, C)
+blocks of a (data, time) mesh, with autograd (``models.hmmr``).
 """
 
 from __future__ import annotations
@@ -37,23 +49,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from human_dynamics_tpu_torch.models.omega import compute_smpl, split_omega
-from human_dynamics_tpu_torch.parallel.mesh import Mesh, all_sum, assemble
+from human_dynamics_tpu_torch.parallel.mesh import Mesh, assemble, psum
 from human_dynamics_tpu_torch.utils.precision import full_fp32
 
 
-def _halo_pad(x_local: torch.Tensor, mesh: Mesh, axis_name: str
-              ) -> torch.Tensor:
+def halo_pad(x_local: torch.Tensor, mesh: Mesh, axis_name: str
+             ) -> torch.Tensor:
     """Append 1-frame halos from both neighbours: (..., Tl, C) ->
-    (..., Tl+2, C). Boundary ranks receive zeros."""
+    (..., Tl+2, C). Boundary ranks receive zeros. Differentiable."""
     idx, n = mesh.index(axis_name), mesh.shape[axis_name]
     buf = x_local.new_zeros((n, 2) + x_local.shape[:-2] + x_local.shape[-1:])
     buf[idx, 0] = x_local[..., 0, :]
     buf[idx, 1] = x_local[..., -1, :]
-    all_sum(buf, mesh, axis_name)
-    zero = torch.zeros_like(buf[0, 0])
-    from_left = buf[idx - 1, 1] if idx > 0 else zero
-    from_right = buf[idx + 1, 0] if idx < n - 1 else zero
+    buf = psum(buf, mesh, axis_name)
+    from_left = buf[(idx - 1) % n, 1] * float(idx > 0)
+    from_right = buf[(idx + 1) % n, 0] * float(idx < n - 1)
     return torch.cat(
         [from_left.unsqueeze(-2), x_local, from_right.unsqueeze(-2)], dim=-2
     )
@@ -63,7 +73,7 @@ def _conv3_halo(x_local: torch.Tensor, conv: nn.Conv1d, mesh: Mesh,
                 axis_name: str) -> torch.Tensor:
     """Width-3 'SAME' temporal conv across the shard boundary, on
     (..., Tl, C), as three matmuls plus the bias."""
-    xp = _halo_pad(x_local, mesh, axis_name)
+    xp = halo_pad(x_local, mesh, axis_name)
     w = conv.weight
     return (
         xp[..., :-2, :] @ w[:, :, 0].T + xp[..., 1:-1, :] @ w[:, :, 1].T
@@ -80,27 +90,29 @@ def _group_norm_global(
 ) -> torch.Tensor:
     """GroupNorm of (..., Tl, C) with statistics over the whole (valid)
     clip: per group, over (T, channels of the group), as ``gn`` on the
-    unsharded clip. ``mask_local`` (..., Tl, 1) marks real frames."""
-    tl, c = x_local.shape[-2:]
+    unsharded clip. ``mask_local`` (..., Tl, 1) marks real frames.
+    Differentiable; fp32 inside, the result in x's dtype."""
+    x, mask = x_local.float(), mask_local.float()
+    tl, c = x.shape[-2:]
     g = gn.num_groups
     cg = c // g
-    lead = x_local.shape[:-2]
-    xg = (x_local * mask_local).reshape(lead + (tl, g, cg))
+    lead = x.shape[:-2]
+    xg = (x * mask).reshape(lead + (tl, g, cg))
     stats = torch.cat([
         xg.sum(dim=(-3, -1)),                           # (..., G)
         (xg * xg).sum(dim=(-3, -1)),
-        mask_local.sum(dim=(-2, -1))[..., None] * cg,   # (..., 1)
+        mask.sum(dim=(-2, -1))[..., None] * cg,         # (..., 1)
     ], dim=-1)
-    all_sum(stats, mesh, axis_name)
-    total_sum, total_sumsq, count = stats.split([g, g, 1], dim=-1)
+    total_sum, total_sumsq, count = psum(stats, mesh, axis_name).split(
+        [g, g, 1], dim=-1)
     mean = total_sum / count
     var = total_sumsq / count - mean * mean
     inv = torch.rsqrt(var + gn.eps)
     normed = (
-        x_local.reshape(lead + (tl, g, cg)) - mean[..., None, :, None]
+        x.reshape(lead + (tl, g, cg)) - mean[..., None, :, None]
     ) * inv[..., None, :, None]
-    out = normed.reshape(lead + (tl, c)) * gn.weight + gn.bias
-    return out * mask_local
+    out = normed.reshape(lead + (tl, c)) * gn.weight.float() + gn.bias.float()
+    return (out * mask).to(x_local.dtype)
 
 
 def temporal_encoder_sharded(
@@ -110,7 +122,10 @@ def temporal_encoder_sharded(
     axis_name: str,
     mask_local: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``TemporalEncoderFC2GN`` forward on a time shard (..., Tl, C)."""
+    """``TemporalEncoderFC2GN`` forward on a time shard (..., Tl, C): the
+    unsharded encoder's on the whole clip, this rank's frames of it.
+    Differentiable (2-D training); every rank of the ``axis_name`` row
+    must call it, and its backward, at the same point."""
     if mask_local is None:
         mask_local = phi_local.new_ones(phi_local.shape[:-1] + (1,))
     net = phi_local * mask_local
@@ -139,6 +154,12 @@ def _heads_and_decode(model, smpl, strip: torch.Tensor, want_verts: bool
                       ) -> Dict[str, torch.Tensor]:
     """IEF heads on (Bl, Tl, C) strips, then one stacked composed SMPL
     decode; every head takes the present camera."""
+    # Imported here: models.hmmr imports this module.
+    from human_dynamics_tpu_torch.models.omega import (
+        compute_smpl,
+        split_omega,
+    )
+
     present, deltas = model._pred_heads(strip, model.predict_delta, False,
                                         None)
     dts = sorted(deltas)

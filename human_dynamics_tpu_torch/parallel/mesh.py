@@ -12,7 +12,8 @@ runs those two on CUDA tensors too, so several ranks can share one GPU
 over gloo, which NCCL refuses. A gather is an ``all_reduce`` of a zeroed
 buffer into which each rank writes its own block (x + 0 is exact).
 
-- ``make_mesh`` / ``make_mesh_2d``: the mesh over the whole process group.
+- ``make_mesh`` / ``make_mesh_2d`` / ``make_mesh_tp``: the mesh over the
+  whole process group.
 - ``shard_batch`` / ``shard_batch_2d``: this rank's contiguous block of a
   batch, with the JAX functions' divisibility errors.
 - ``replicate``: rank 0's tensors on every rank; ``broadcast_tensors`` does it
@@ -20,25 +21,33 @@ buffer into which each rank writes its own block (x + 0 is exact).
 - ``psum``: a sum over the ranks that autograd differentiates (its backward
   sums the incoming gradients over the same ranks); ``sum_gradients``: every
   gradient of some modules summed over the ranks in one ``all_reduce``.
-- ``make_mesh_tp`` / ``shard_params_tp``: wait for training (ROADMAP.md,
-  Queue 1 item 5b).
+
+A collective runs over one axis, a set of axes or the whole mesh: ``Mesh``
+makes a process group for every row of every set of axes. A training
+batch's rows are split over the mesh's ``batch_axes``: every axis but
+``model`` (``data``, and ``time`` on a (data, time) mesh), so the losses'
+counts, the BatchNorm moments and the gradients are summed over those.
+The tensor-parallel hook, ``shard_params_tp``, is ``parallel.tp``'s.
 """
 
 from __future__ import annotations
 
+import itertools
 from collections.abc import Mapping
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 # The axis data-parallel training splits the batch over.
 DATA_AXIS = "data"
+# The axis 2-D training splits a clip's frames over.
+TIME_AXIS = "time"
+# The axis tensor-parallel training splits wide weights over; its ranks
+# hold the same rows of the batch.
+MODEL_AXIS = "model"
 
-_TP_ITEM = (
-    "tensor-parallel parameter sharding is not ported yet (ROADMAP.md, "
-    "Queue 1 item 5b, step 5: the TP hook)"
-)
+Axes = Union[None, str, Sequence[str]]
 
 
 def _dist():
@@ -107,28 +116,58 @@ class Mesh:
             a: int(i) for a, i in
             zip(axis_names, np.unravel_index(rank, sizes))
         }
-        # One group per row of each axis, made in the same order on every
-        # rank (new_group is collective); a row that spans every rank is
-        # the world group.
+        # One group per row of each set of axes, made in the same order on
+        # every rank (new_group is collective); a row that spans every rank
+        # is the world group.
         self._groups = {}
-        for i, axis in enumerate(axis_names):
-            for row in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]):
-                ranks = row.tolist()
-                group = (dist.group.WORLD if len(ranks) == world
-                         else dist.new_group(ranks))
-                if rank in ranks:
-                    self._groups[axis] = group
+        for n in range(1, len(sizes) + 1):
+            for dims in itertools.combinations(range(len(sizes)), n):
+                kept = [d for d in range(len(sizes)) if d not in dims]
+                rows = np.transpose(grid, kept + list(dims)).reshape(
+                    -1, int(np.prod([sizes[d] for d in dims])))
+                for row in rows:
+                    ranks = row.tolist()
+                    group = (dist.group.WORLD if len(ranks) == world
+                             else dist.new_group(ranks))
+                    if rank in ranks:
+                        self._groups[tuple(axis_names[d] for d in dims)] = group
 
-    def index(self, axis: str) -> int:
-        """This rank's index along ``axis``."""
-        return self.coords[axis]
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The axes a training batch's rows are split over: all but
+        ``model``, whose ranks hold the same rows."""
+        return tuple(a for a in self.axis_names if a != MODEL_AXIS)
 
-    def group(self, axis: Optional[str] = None):
-        """The process group of this rank's row along ``axis`` (None: every
-        rank)."""
-        if axis is None:
+    def _axes(self, axes: Axes) -> Tuple[str, ...]:
+        """``axes`` as a tuple in the mesh's order (None: every axis)."""
+        if axes is None:
+            return self.axis_names
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = set(axes) - set(self.axis_names)
+        if unknown:
+            raise KeyError(f"axes {sorted(unknown)} are not in the mesh's "
+                           f"{self.axis_names}")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def axis_size(self, axes: Axes = None) -> int:
+        """The number of ranks in a row along ``axes``."""
+        return int(np.prod([self.shape[a] for a in self._axes(axes)]))
+
+    def index(self, axes: Axes) -> int:
+        """This rank's index along ``axes``: its place in its row, row
+        major over the axes in the mesh's order."""
+        idx = 0
+        for a in self._axes(axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def group(self, axes: Axes = None):
+        """The process group of this rank's row along ``axes`` (an axis, a
+        set of axes; None: every rank)."""
+        axes = self._axes(axes)
+        if axes == self.axis_names:
             return _dist().group.WORLD
-        return self._groups[axis]
+        return self._groups[axes]
 
 
 def make_mesh(
@@ -159,12 +198,16 @@ def make_mesh_2d(
     return Mesh((data_size, time_size), axis_names, device=device)
 
 
-def make_mesh_tp(*args, **kwargs):
-    raise NotImplementedError(_TP_ITEM)
-
-
-def shard_params_tp(*args, **kwargs):
-    raise NotImplementedError(_TP_ITEM)
+def make_mesh_tp(
+    data_size: int,
+    model_size: int,
+    axis_names: Sequence[str] = (DATA_AXIS, MODEL_AXIS),
+    device=None,
+) -> Mesh:
+    """(data_size x model_size) mesh for tensor-parallel training,
+    ``model`` innermost: rank d * model_size + m, so the activation
+    gathers of a data row stay within neighbouring ranks."""
+    return Mesh((data_size, model_size), axis_names, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -177,15 +220,16 @@ def shard_params_tp(*args, **kwargs):
 # torch.inference_mode) takes that write only inside inference mode.
 
 
-def all_sum(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None
+def all_sum(t: torch.Tensor, mesh: Mesh, axis: Axes = None
             ) -> torch.Tensor:
-    """Sum ``t`` in place over the ranks of this rank's ``axis`` row."""
+    """Sum ``t`` in place over the ranks of this rank's ``axis`` row (an
+    axis or a set of axes; None: every rank)."""
     with torch.inference_mode(t.is_inference()):
         _dist().all_reduce(t, group=mesh.group(axis))
     return t
 
 
-def broadcast(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: Axes = None
               ) -> torch.Tensor:
     """``t`` in place from the first rank of this rank's ``axis`` row
     (None: from rank 0)."""
@@ -220,7 +264,7 @@ class _PSum(torch.autograd.Function):
                        ctx.mesh, ctx.axis), None, None
 
 
-def psum(x: torch.Tensor, mesh: Mesh, axis: Optional[str] = None
+def psum(x: torch.Tensor, mesh: Mesh, axis: Axes = None
          ) -> torch.Tensor:
     """``x`` summed over the ranks of this rank's ``axis`` row, as a new
     tensor that autograd differentiates: with each rank's loss a share of
@@ -252,7 +296,7 @@ def broadcast_tensors(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
 
 @torch.no_grad()
 def sum_gradients(modules: Sequence[torch.nn.Module], mesh: Mesh,
-                  axis: Optional[str] = DATA_AXIS) -> None:
+                  axis: Axes = DATA_AXIS) -> None:
     """Every gradient of ``modules`` (the parameters whose ``grad`` is set)
     summed over the ranks of this rank's ``axis`` row, in place: one
     ``all_reduce`` of a flat buffer per dtype, not one per parameter."""
@@ -266,7 +310,7 @@ def assemble(
     lead: Tuple[int, ...],
     index: Tuple[slice, ...],
     mesh: Mesh,
-    axis: Optional[str] = None,
+    axis: Axes = None,
 ) -> Dict[str, torch.Tensor]:
     """Gather each rank's block of several arrays in one ``all_reduce``.
 

@@ -7,12 +7,16 @@ least 1 (so an all-masked loss is 0, not NaN). That denominator changes a
 loss's scale against a plain mean whenever visibility masks are sparse.
 
 Each loss takes ``mesh``: None computes the loss of the batch it is given;
-a data mesh (``parallel.make_mesh``) makes it this rank's share of the loss
-of the global batch, whose other rows the other ranks hold. The share is
-the rank's sum divided by the global count: the nonzero weights summed
-over the ranks (an ``all_reduce``, outside autograd), or the element count
-times the number of ranks, every rank holding an equal block. The shares
-of all ranks add up to the global loss, and so do their gradients.
+a mesh makes it this rank's share of the loss of the global batch, whose
+other rows the other ranks along the mesh's batch axes hold (``data``, and
+``time`` on a (data, time) mesh; a ``model`` axis's ranks hold the same
+rows). The share is the rank's sum divided by the global count: the
+nonzero weights summed over the ranks (an ``all_reduce``, outside
+autograd), or the element count times the number of ranks, every rank
+holding an equal block. The shares of all ranks add up to the global loss,
+and so do their gradients. Where the ranks hold unequal numbers of valid
+elements (frame pairs across a time shard's edge), the invalid ones carry
+weight 0 and the loss is a weighted one.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from human_dynamics_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, all_sum
+from human_dynamics_tpu_torch.parallel.halo import halo_pad
+from human_dynamics_tpu_torch.parallel.mesh import TIME_AXIS, Mesh, all_sum
 
 from human_dynamics_tpu_torch.core.projection import orth_proj_optcam
 
@@ -32,7 +37,7 @@ def _sum_by_nonzero_weights(losses: torch.Tensor, weights: torch.Tensor,
     weighted = losses * weights
     nonzero = torch.broadcast_to(weights != 0.0, losses.shape).sum()
     if mesh is not None:
-        nonzero = all_sum(nonzero, mesh, DATA_AXIS)
+        nonzero = all_sum(nonzero, mesh, mesh.batch_axes)
     return weighted.sum() / torch.clamp(nonzero, min=1).to(losses.dtype)
 
 
@@ -40,7 +45,7 @@ def _mean(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """mean(x); with a mesh this rank's share of the global batch's mean."""
     if mesh is None:
         return torch.mean(x)
-    return x.sum() / (x.numel() * mesh.shape[DATA_AXIS])
+    return x.sum() / (x.numel() * mesh.axis_size(mesh.batch_axes))
 
 
 def keypoint_l1_loss(kp_gt: torch.Tensor, kp_pred: torch.Tensor,
@@ -54,17 +59,23 @@ def keypoint_l1_loss(kp_gt: torch.Tensor, kp_pred: torch.Tensor,
 
 
 def keypoint_l1_loss_optcam(
-    kp_gt: torch.Tensor, kp_pred: torch.Tensor, mesh: Optional[Mesh] = None
+    kp_gt: torch.Tensor, kp_pred: torch.Tensor, mesh: Optional[Mesh] = None,
+    valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """L1 after the per-frame optimal (detached) camera.
 
-    kp_gt (B, T, K, 3); kp_pred (B, T, K, 2). Returns (loss, best_cam
+    kp_gt (B, T, K, 3); kp_pred (B, T, K, 2); ``valid`` (T,), when given,
+    weighs each frame's keypoints (0 leaves the frame out of the loss and
+    its count; its camera is still fitted). Returns (loss, best_cam
     (B, T, 3)).
     """
     b, t = kp_gt.shape[:2]
     gt = kp_gt.reshape(b * t, -1, 3)
     pred = kp_pred.reshape(b * t, -1, 2)
     pred_sim, best_cam = orth_proj_optcam(pred, gt)
+    if valid is not None:
+        vis = gt[..., 2:] * valid.repeat(b)[:, None, None]
+        gt = torch.cat([gt[..., :2], vis], dim=-1)
     return keypoint_l1_loss(gt, pred_sim, mesh), best_cam.reshape(b, t, 3)
 
 
@@ -115,8 +126,21 @@ def loss_3d(
 
 def beta_smoothness_loss(shapes: torch.Tensor,
                          mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """0.5 * MSE between consecutive betas; shapes (B, T, 10)."""
-    return 0.5 * _mean((shapes[:, :-1] - shapes[:, 1:]) ** 2, mesh)
+    """0.5 * MSE between consecutive betas; shapes (B, T, 10).
+
+    On a mesh with a ``time`` axis ``shapes`` is this rank's (Bl, Tl, 10)
+    block: its last frame pairs with the next rank's first, taken with its
+    gradient by a differentiable halo, and the last rank's last frame
+    pairs with nothing (weight 0): the B·(T-1)·10 differences of the whole
+    batch over its ranks."""
+    if mesh is None or TIME_AXIS not in mesh.shape:
+        return 0.5 * _mean((shapes[:, :-1] - shapes[:, 1:]) ** 2, mesh)
+    seq = halo_pad(shapes, mesh, TIME_AXIS)[:, 1:]
+    valid = torch.ones(shapes.shape[1], 1, dtype=shapes.dtype,
+                       device=shapes.device)
+    valid[-1] = float(mesh.index(TIME_AXIS) < mesh.shape[TIME_AXIS] - 1)
+    return 0.5 * _sum_by_nonzero_weights(
+        (seq[:, :-1] - seq[:, 1:]) ** 2, valid, mesh)
 
 
 def shape_prior_loss(shapes: torch.Tensor,

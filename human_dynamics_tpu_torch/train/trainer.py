@@ -55,6 +55,26 @@ BatchNorm on every rank's frames. The one backward is followed by one
 (``parallel.mesh.sum_gradients``), so both Adams take the global gradient
 and every rank ends the step with the same parameters, moments and moving
 averages, bit for bit. With one rank the step is the single-process one.
+
+2-D training (``mesh=make_mesh_2d(d, t)``, a ``shard_batch_2d``ed batch)
+splits each tube's T frames over ``time`` too; the batch axes are then
+(data, time), over which every count, BatchNorm moment, metric and
+gradient is summed. The temporal encoder runs on the rank's frames with
+1-frame halos and clip-global GroupNorm (``parallel.halo``). The ±dt heads
+pair the prediction at frame t with the ground truth at t + dt, which may
+lie on another rank: the ground truth (no gradient) is gathered whole over
+the rank's time row, and a pair outside the clip carries weight 0 in every
+loss and count. ``e_const`` takes the next rank's first betas with their
+gradient by a halo. ``shard_batch_2d`` leaves the mocap pool whole, so
+each rank takes its 1/(d·t) block of it.
+
+Tensor parallelism (``mesh=make_mesh_tp(d, m)``, then
+``trainer.state = parallel.shard_params_tp(trainer.state, mesh)`` and
+``shard_batch``ed batches) keeps each wide weight's slice of output
+features on each model rank (``parallel.tp``). Every model rank of a data
+row holds the same rows and computes the same losses; the batch axis is
+``data`` alone. ``save`` gathers the whole tensors first and
+``maybe_restore`` shards what it loads.
 """
 
 from __future__ import annotations
@@ -90,12 +110,15 @@ from human_dynamics_tpu_torch.ops.smpl_cuda import (
 )
 from human_dynamics_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    TIME_AXIS,
     Mesh,
     all_sum,
+    assemble,
     barrier,
     broadcast_tensors,
     sum_gradients,
 )
+from human_dynamics_tpu_torch.parallel.tp import gathered, is_sharded
 from human_dynamics_tpu_torch.train import losses as L
 from human_dynamics_tpu_torch.utils.checkpoint import (
     checkpoint_top_keys,
@@ -270,14 +293,48 @@ def loss_weight_table(config: Config) -> Dict[str, float]:
     return weights
 
 
-def _delta_slices(dt: int):
-    """(gt, pred) time slices for a dt head: past heads compare
-    pred[|dt|:] with gt[:dt], future heads pred[:-dt] with gt[dt:]."""
-    if dt == 0:
-        return slice(None), slice(None)
-    if dt < 0:
-        return slice(None, dt), slice(abs(dt), None)
-    return slice(dt, None), slice(None, -dt)
+def _delta_pairs(dt: int, t0: int, t: int, total: int, device):
+    """The ground-truth frame of each of the frames t0 .. t0+t-1 of a dt
+    head, and whether the pair lies in the clip: the prediction at frame
+    f meets the ground truth at f + dt (past heads pred[|dt|:] with
+    gt[:dt], future heads pred[:-dt] with gt[dt:]). Out-of-clip frames
+    point at the clip's edge frame, so that their (weight 0) terms stay
+    finite."""
+    frames = torch.arange(t0, t0 + t, device=device) + dt
+    valid = ((frames >= 0) & (frames < total)).float()
+    return frames.clamp(0, total - 1), valid
+
+
+def _gt_over_time(batch: "Batch", mesh: Optional[Mesh]):
+    """(kps, poses_gt, joints_gt) of this rank's tubes over the whole clip,
+    the first frame's index and the clip's length: on a mesh with a
+    ``time`` axis gathered over the rank's time row (one ``all_reduce``),
+    else the batch's own."""
+    t = batch.kps.shape[1]
+    if mesh is None or TIME_AXIS not in mesh.shape:
+        return batch.kps, batch.poses_gt, batch.joints_gt, 0, t
+    parts = {"kps": batch.kps, "poses": batch.poses_gt,
+             "joints": batch.joints_gt}
+    total = t * mesh.shape[TIME_AXIS]
+    t0 = mesh.index(TIME_AXIS) * t
+    whole = assemble(parts, (batch.kps.shape[0], total),
+                     (slice(None), slice(t0, t0 + t)), mesh, TIME_AXIS)
+    return whole["kps"], whole["poses"], whole["joints"], t0, total
+
+
+def _real_pool(batch: "Batch", mesh: Optional[Mesh]) -> torch.Tensor:
+    """The mocap pool this rank's discriminator loss takes: its block of
+    the pool on a mesh with a ``time`` axis (``shard_batch_2d`` leaves the
+    pool whole on every rank), else the batch's."""
+    pool = batch.poses_real
+    if mesh is None or TIME_AXIS not in mesh.shape:
+        return pool
+    parts = mesh.axis_size(mesh.batch_axes)
+    if pool.shape[0] % parts:
+        raise ValueError(f"the mocap pool of {pool.shape[0]} poses is not "
+                         f"divisible by the mesh's {parts} batch ranks")
+    k = pool.shape[0] // parts
+    return pool[mesh.index(mesh.batch_axes) * k:][:k]
 
 
 def _outputs_f32(out: HmmrOutputs) -> HmmrOutputs:
@@ -323,13 +380,14 @@ def compute_losses(
     ``train`` turns the IEF dropout on (masks from ``generator``) and, in
     image mode, the ResNet's train-mode BatchNorm, whose moving averages
     advance in place. ``fused_constants`` (only with ``use_fused_smpl``) are the fused
-    kernel's constants, prepared once by the caller. With a data ``mesh``
+    kernel's constants, prepared once by the caller. With a ``mesh``
     ``batch`` is this rank's block of the global batch, and every loss and
     metric is this rank's share of the global batch's (the ranks' shares
     sum to it); its fake pool is its own rows of every head and its real
-    pool its block of ``poses_real``.
+    pool its block of ``poses_real``. A ``time`` axis splits each tube's
+    frames too (the module docstring).
     """
-    b, t = batch.phis.shape[0], config.T
+    b, t = batch.phis.shape[:2]
     kwargs = {"train": train, "generator": generator, "mesh": mesh}
     with (updating_batch_stats(hmmr) if train else contextlib.nullcontext()):
         if config.use_bfloat16:
@@ -340,8 +398,9 @@ def compute_losses(
         else:
             out = hmmr(batch.phis, **kwargs)
 
-    gt = OmegaGt.create(batch.poses_gt, batch.shapes_gt, batch.joints_gt,
-                        batch.kps)
+    kps_all, poses_all, joints_all, t0, total = _gt_over_time(batch, mesh)
+    gt_all = OmegaGt.create(poses_all, batch.shapes_gt, joints_all, kps_all)
+    gt = gt_all.at_frames(slice(t0, t0 + t))
 
     # Every head in ONE SMPL decode.
     heads = [("pred", 0, out.omega_pred)]
@@ -369,7 +428,12 @@ def compute_losses(
         cams, _, shapes = split_omega(raw)
         fake_poses.append(sm.poses_rot[idx].reshape(-1, 24, 9))
         fake_shapes.append(shapes.reshape(-1, 10))
-        s_gt, s_pr = _delta_slices(dt)
+        if dt == 0:
+            pair, valid, rows = gt, None, 1.0
+        else:
+            frames, valid = _delta_pairs(dt, t0, t, total, raw.device)
+            pair = gt_all.at_frames(frames)
+            rows = valid.repeat(b)
 
         if kind in ("pred", "hal"):
             # Own camera: project the joints with the predicted cam.
@@ -379,21 +443,20 @@ def compute_losses(
             loss_kp = L.keypoint_l1_loss(gt.kps, kps_pred, mesh)
         else:
             loss_kp, _ = L.keypoint_l1_loss_optcam(
-                gt.kps[:, s_gt], sm.kps[idx][:, s_pr], mesh)
+                pair.kps, sm.kps[idx], mesh, valid)
 
         if config.use_3d_label:
-            seq_len = t - abs(dt)
             lp, ls, lj = L.loss_3d(
-                poses_gt=gt.poses_rot[:, s_gt],
-                poses_pred=sm.poses_rot[idx][:, s_pr],
-                shapes_gt=gt.shapes_tiled(t)[:, s_gt],
-                shapes_pred=shapes[:, s_pr],
-                joints_gt=gt.joints[:, s_gt],
-                joints_pred=sm.joints[idx][:, s_pr, :14],
+                poses_gt=pair.poses_rot,
+                poses_pred=sm.poses_rot[idx],
+                shapes_gt=gt.shapes_tiled(t),
+                shapes_pred=shapes,
+                joints_gt=pair.joints,
+                joints_pred=sm.joints[idx][..., :14, :],
                 has_gt3d_smpl=torch.repeat_interleave(batch.has_3d_smpl,
-                                                      seq_len),
+                                                      t) * rows,
                 has_gt3d_joints=torch.repeat_interleave(batch.has_3d_joints,
-                                                        seq_len),
+                                                        t) * rows,
                 mesh=mesh,
             )
         else:
@@ -423,10 +486,11 @@ def compute_losses(
     # critic, D meets detached fakes.
     poses_fake = torch.cat(fake_poses)                    # (F, 24, 9)
     shapes_fake = torch.cat(fake_shapes)
-    if batch.poses_real.dim() == 3 and batch.poses_real.shape[-1] == 3:
-        poses_real = rodrigues(batch.poses_real).reshape(-1, 24, 9)
+    pool = _real_pool(batch, mesh)
+    if pool.dim() == 3 and pool.shape[-1] == 3:
+        poses_real = rodrigues(pool).reshape(-1, 24, 9)
     else:
-        poses_real = batch.poses_real.reshape(-1, 24, 9)
+        poses_real = pool.reshape(-1, 24, 9)
     fake_in, real_in = poses_fake[:, 1:], poses_real[:, 1:]
     critic = {k: v.detach() for k, v in disc.named_parameters()}
     out_fake_for_e = functional_call(disc, critic, (fake_in,))
@@ -462,10 +526,11 @@ def _zero_grads(opt: torch.optim.Optimizer) -> None:
 
 def _global_metrics(metrics: Dict[str, torch.Tensor],
                     mesh: Mesh) -> Dict[str, torch.Tensor]:
-    """Every rank's shares of the metrics summed, in one ``all_reduce``."""
+    """Every rank's shares of the metrics summed over the batch axes, in
+    one ``all_reduce``."""
     names = list(metrics)
     flat = all_sum(torch.stack([metrics[k].detach().float() for k in names]),
-                   mesh, DATA_AXIS)
+                   mesh, mesh.batch_axes)
     return dict(zip(names, flat.unbind()))
 
 
@@ -479,10 +544,10 @@ def train_step(
     mesh: Optional[Mesh] = None,
 ) -> Dict[str, torch.Tensor]:
     """One simultaneous E/D update of ``state`` in place; returns the
-    metrics as detached device scalars (no host sync). With a data
-    ``mesh``, ``batch`` is this rank's block; the gradients are summed over
-    the ranks before the Adams step, and the metrics are the global
-    losses."""
+    metrics as detached device scalars (no host sync). With a ``mesh``,
+    ``batch`` is this rank's block; the gradients (sharded ones too) are
+    summed over the ranks of the mesh's batch axes before the Adams step,
+    and the metrics are the global losses."""
     with full_fp32():
         e_loss, d_loss, metrics = compute_losses(
             config, state.hmmr, state.disc, smpl, batch, train=True,
@@ -492,7 +557,7 @@ def train_step(
         _zero_grads(state.opt_d)
         (e_loss + d_loss).backward()
     if mesh is not None:
-        sum_gradients((state.hmmr, state.disc), mesh, DATA_AXIS)
+        sum_gradients((state.hmmr, state.disc), mesh, mesh.batch_axes)
         metrics = _global_metrics(metrics, mesh)
     state.opt_e.step()
     state.opt_d.step()
@@ -549,14 +614,17 @@ class Trainer:
     mesh's; the CPU runs only when asked for. With ``config.model_dir`` set,
     the newest checkpoint there is restored.
 
-    With a data ``mesh`` (one process per device, every one making the same
-    calls) the Trainer is this rank's part of a data-parallel one: rank 0's
+    With a ``mesh`` (one process per device, every one making the same
+    calls) the Trainer is this rank's part of a sharded one: rank 0's
     state is broadcast at construction, ``step`` takes this rank's block of
     the global batch (``parallel.shard_batch``, or a pipeline of
-    ``batch_size // W`` with ``host_id=rank``), only rank 0 writes
-    checkpoints and logs while the others wait, and every rank restores the
-    same checkpoint. ``config.batch_size`` is the global batch, which the
-    mesh's data axis must divide.
+    ``batch_size // W`` with ``host_id=rank``; ``shard_batch_2d`` on a
+    (data, time) mesh), only rank 0 writes checkpoints and logs while the
+    others wait, and every rank restores the same checkpoint.
+    ``config.batch_size`` is the global batch, which the mesh's data axis
+    must divide, as its time axis must divide ``config.T``. On a (data,
+    model) mesh, ``parallel.shard_params_tp(trainer.state, mesh)`` shards
+    the wide weights; every rank then also runs the summaries' forwards.
     """
 
     # SMPL joint names of the 23 per-joint discriminator heads.
@@ -574,11 +642,14 @@ class Trainer:
         self.config = config
         self.mesh = mesh
         if mesh is not None:
-            world = mesh.shape[DATA_AXIS]
-            if config.batch_size % world:
-                raise ValueError(
-                    f"batch_size {config.batch_size} is not divisible by the "
-                    f"mesh's {DATA_AXIS!r} axis of {world} ranks")
+            for axis, size in ((DATA_AXIS, config.batch_size),
+                               (TIME_AXIS, config.T)):
+                parts = mesh.shape.get(axis, 1)
+                if size % parts:
+                    raise ValueError(
+                        f"{'batch_size' if axis == DATA_AXIS else 'T'} "
+                        f"{size} is not divisible by the mesh's {axis!r} "
+                        f"axis of {parts} ranks")
             device = mesh.device if device is None else device
         self.device = resolve_device(device)
         self.smpl = smpl.to(self.device)
@@ -623,42 +694,45 @@ class Trainer:
 
     def save(self) -> Optional[str]:
         """model_dir/ckpt-<step>.npz (its path), or None without a
-        model_dir. Under a mesh rank 0 writes it and every rank returns
-        once it is written."""
+        model_dir. Under a mesh rank 0 writes it (the whole tensors of a
+        TP-sharded state) and every rank returns once it is written."""
         if not self.config.model_dir:
             return None
         st = self.state
         path = os.path.join(self.config.model_dir, f"ckpt-{st.step}.npz")
-        if self.is_lead:
-            tree = {"params_e": export_jax_variables(st.hmmr),
-                    "params_d": export_jax_variables(st.disc),
-                    "step": np.int32(st.step)}
-            if not self.config.save_params_only:
-                tree["opt_state_e"] = _export_adam(st.hmmr, st.opt_e)
-                tree["opt_state_d"] = _export_adam(st.disc, st.opt_d)
-            path = save_checkpoint(path, tree)
+        with gathered(st):
+            if self.is_lead:
+                tree = {"params_e": export_jax_variables(st.hmmr),
+                        "params_d": export_jax_variables(st.disc),
+                        "step": np.int32(st.step)}
+                if not self.config.save_params_only:
+                    tree["opt_state_e"] = _export_adam(st.hmmr, st.opt_e)
+                    tree["opt_state_d"] = _export_adam(st.disc, st.opt_d)
+                path = save_checkpoint(path, tree)
         if self.mesh is not None:
             barrier(self.mesh)
         return path
 
     def maybe_restore(self, model_dir: str) -> bool:
         """Restore the newest checkpoint of ``model_dir``; a params-only
-        one resets the Adam moments. False when there is none."""
+        one resets the Adam moments. A TP-sharded state keeps its slices of
+        what it loads. False when there is none."""
         ckpt = latest_checkpoint(model_dir)
         if ckpt is None:
             return False
         full = "opt_state_e" in (checkpoint_top_keys(ckpt) or ())
         tree = load_checkpoint(ckpt)
         st = self.state
-        load_jax_variables(st.hmmr, tree["params_e"])
-        load_jax_variables(st.disc, tree["params_d"])
-        if full:
-            _import_adam(st.hmmr, st.opt_e, tree["opt_state_e"])
-            _import_adam(st.disc, st.opt_d, tree["opt_state_d"])
-        else:
-            st.opt_e.state.clear()
-            st.opt_d.state.clear()
-            print("Params-only checkpoint: optimizer moments reset")
+        with gathered(st):
+            load_jax_variables(st.hmmr, tree["params_e"])
+            load_jax_variables(st.disc, tree["params_d"])
+            if full:
+                _import_adam(st.hmmr, st.opt_e, tree["opt_state_e"])
+                _import_adam(st.disc, st.opt_d, tree["opt_state_d"])
+            else:
+                st.opt_e.state.clear()
+                st.opt_d.state.clear()
+                print("Params-only checkpoint: optimizer moments reset")
         st.step = int(np.asarray(tree["step"]))
         print(f"Restored checkpoint {ckpt} (step {st.step})")
         return True
@@ -673,13 +747,13 @@ class Trainer:
                  in variable_map(self.state.hmmr).items()}
         leaves = flatten_tree(tree)
         skipped = sorted(set(leaves) - set(names))
-        values = jax_to_port(
-            self.state.hmmr, tree,
-            [names[k] for k in leaves if k in names], strict=False,
-        )
-        tensors = dict(self.state.hmmr.named_parameters())
-        tensors.update(self.state.hmmr.named_buffers())
-        with torch.no_grad():
+        with gathered(self.state), torch.no_grad():
+            values = jax_to_port(
+                self.state.hmmr, tree,
+                [names[k] for k in leaves if k in names], strict=False,
+            )
+            tensors = dict(self.state.hmmr.named_parameters())
+            tensors.update(self.state.hmmr.named_buffers())
             for name, v in values.items():
                 tensors[name].copy_(v)
         if skipped:
@@ -752,8 +826,9 @@ class Trainer:
     def histogram_summary(self, batch: Batch) -> None:
         """Log beta and per-joint discriminator-output histograms; one
         extra forward at summary cadence. Under a mesh only rank 0 logs,
-        so the histograms are of rank 0's rows of the global batch."""
-        if self.logger is None:
+        so the histograms are of rank 0's rows of the global batch (every
+        rank runs the forward of a TP-sharded state)."""
+        if self.logger is None and not is_sharded(self.state):
             return
         step_no = self.state.step
         with full_fp32():
@@ -763,6 +838,8 @@ class Trainer:
                 split_omega(out.omega_pred)[1].reshape(-1, 24, 3)
             ).reshape(-1, 24, 9)
             d_out = self.state.disc(poses_rot[:, 1:]).cpu().numpy()
+        if self.logger is None or not self.is_lead:
+            return
         self.logger.log_histogram(step_no, "betas", betas.cpu().numpy())
         if out.omega_hal is not None:
             self.logger.log_histogram(
@@ -803,6 +880,9 @@ class Trainer:
         metrics = {}
         timer = StepTimer()
         profiling = False
+        # A TP-sharded forward is collective: every rank makes it.
+        summarise = is_sharded(self.state) or (self.is_lead
+                                               and self.logger is not None)
         with contextlib.ExitStack() as trace:
             for _ in range(num_steps):
                 step_no = self.state.step
@@ -827,12 +907,13 @@ class Trainer:
                     print(f"step {step_no}: e_loss={m['e_loss']:.4f} "
                           f"d_loss={m['d_loss']:.4f} "
                           f"({timer.mean_ms:.0f} ms/step)")
-                if (self.is_lead and self.logger is not None
-                        and self.config.log_img_step
+                if (summarise and self.config.log_img_step
                         and step_no % self.config.log_img_step == 0):
                     try:
                         strip = self.render_summary(batch)
-                        self.logger.log_image(step_no, "pred/strip", strip)
+                        if self.is_lead and self.logger is not None:
+                            self.logger.log_image(step_no, "pred/strip",
+                                                  strip)
                     except Exception as exc:  # vis must never kill training
                         print(f"render_summary failed: {exc}")
                     try:

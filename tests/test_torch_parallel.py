@@ -156,14 +156,29 @@ def test_initialize_two_process_rendezvous(groups):
 
 
 def test_mesh_needs_a_process_group_and_tp_waits():
+    """Every mesh, the tensor-parallel one too, needs a process group; and
+    shard_params_tp takes only a mesh with a ``model`` axis (a (data,
+    time) mesh's layout here, before any weight is touched)."""
+    import types
+
     import torch.distributed as dist
 
+    from human_dynamics_tpu_torch.models import PoseDiscriminator
+
     assert not dist.is_initialized()
-    with pytest.raises(RuntimeError, match="initialize"):
-        parallel.make_mesh(1, device="cpu")
-    for fn in (parallel.make_mesh_tp, parallel.shard_params_tp):
-        with pytest.raises(NotImplementedError, match="5b"):
-            fn(2, 2)
+    for make, args in ((parallel.make_mesh, (1,)),
+                       (parallel.make_mesh_2d, (1, 1)),
+                       (parallel.make_mesh_tp, (1, 1))):
+        with pytest.raises(RuntimeError, match="initialize"):
+            make(*args, device="cpu")
+    disc = PoseDiscriminator(device="cpu")
+    before = {n: p.clone() for n, p in disc.named_parameters()}
+    mesh_2d = types.SimpleNamespace(shape={"data": 2, "time": 2},
+                                    axis_names=("data", "time"))
+    with pytest.raises(ValueError, match="no 'model' axis"):
+        parallel.shard_params_tp(disc, mesh_2d)
+    for n, p in disc.named_parameters():
+        assert torch.equal(p, before[n]), n
 
 
 # ---------------------------------------------------------------------------

@@ -133,11 +133,26 @@ def _serve(payload, args, mesh, rank):
 
 
 def _train_batch(arrays, mesh):
-    """This rank's block of a global train Batch (numpy or tensors)."""
+    """This rank's block of a global train Batch (numpy or tensors):
+    ``shard_batch_2d`` on a (data, time) mesh, else ``shard_batch``."""
     from human_dynamics_tpu_torch import parallel
     from human_dynamics_tpu_torch.train.trainer import Batch
 
+    if "time" in mesh.shape:
+        return parallel.shard_batch_2d(Batch(**arrays), mesh)
     return parallel.shard_batch(Batch(**arrays), mesh)
+
+
+def _train_mesh(args, world):
+    """The mesh of a "train" case: ``mesh`` ("2d", d, t) or ("tp", d, m),
+    else a data mesh over the world."""
+    from human_dynamics_tpu_torch import parallel
+
+    kind = args.get("mesh")
+    if kind is None:
+        return parallel.make_mesh(world, "data", device="cpu")
+    make = {"2d": parallel.make_mesh_2d, "tp": parallel.make_mesh_tp}
+    return make[kind[0]](*kind[1:], device="cpu")
 
 
 def _trainer_state(tr):
@@ -157,16 +172,22 @@ def _trainer_state(tr):
 
 
 def _train(payload, args, mesh):
-    """A data-parallel Trainer on ``mesh`` from the payload's weights,
-    ``steps`` steps on this rank's block of the global batch; returns the
-    metrics of each step, the summed gradients of each (rank 0 only) and
-    the state after the last. ``blocks`` builds a narrow ResNet; ``dropout`` False
-    evaluates the heads without dropout, as the JAX comparisons do."""
+    """A sharded Trainer on ``mesh`` from the payload's weights, ``steps``
+    steps on this rank's block of the global batch; returns the metrics of
+    each step, the summed gradients of each (rank 0 only) and the state
+    after the last. ``blocks`` builds a narrow ResNet; ``dropout`` False
+    evaluates the heads without dropout, as the JAX comparisons do. On a
+    (data, model) mesh the state is ``shard_params_tp``ed (``min_dim``),
+    the gradients and the state are the whole tensors, the names of the
+    sharded weights come back, and with ``save`` the Trainer writes a
+    checkpoint to its config's model_dir at the end and restores it."""
+    import contextlib
     import functools
 
     from human_dynamics_tpu_torch.core import synthetic_smpl_model
     from human_dynamics_tpu_torch.models import hmmr as PH
     from human_dynamics_tpu_torch.models import resnet as PR
+    from human_dynamics_tpu_torch.parallel import gathered_tp, shard_params_tp
     from human_dynamics_tpu_torch.train.trainer import Trainer
     from human_dynamics_tpu_torch.utils.config import Config
 
@@ -188,15 +209,35 @@ def _train(payload, args, mesh):
         heads = tr.state.hmmr._pred_heads
         tr.state.hmmr._pred_heads = lambda f, with_deltas, train, g: heads(
             f, with_deltas, False, None)
+    tp = "model" in mesh.shape
+    out = {}
+    if tp:
+        tr.state = shard_params_tp(tr.state, mesh,
+                                   min_dim=args.get("min_dim", 128))
+        out["sharded"] = sorted(
+            f"{tag}.{n}.weight" for tag, module in (("e", tr.state.hmmr),
+                                                    ("d", tr.state.disc))
+            for n, m in module.named_modules() if "_tp" in m.__dict__)
+    whole = (lambda: gathered_tp(tr.state)) if tp else contextlib.nullcontext
     batch = _train_batch(payload["batches"][args["batch"]], mesh)
     metrics, grads = [], []
     for _ in range(args.get("steps", 1)):
         metrics.append({k: float(v) for k, v in tr.step(batch).items()})
-        if mesh.rank == 0:
-            grads.append({n: p.grad.clone()
-                          for n, p in _trainer_state(tr).items()
-                          if getattr(p, "grad", None) is not None})
-    return {"metrics": metrics, "grads": grads, "state": _trainer_state(tr)}
+        with whole():
+            if mesh.rank == 0:
+                grads.append({n: p.grad.clone()
+                              for n, p in _trainer_state(tr).items()
+                              if getattr(p, "grad", None) is not None})
+    with whole():
+        out.update(metrics=metrics, grads=grads, state=_tensors(
+            _trainer_state(tr)))
+    if args.get("save"):
+        # Written whole, then restored into this (sharded) state.
+        out["checkpoint"] = tr.save()
+        tr.maybe_restore(tr.config.model_dir)
+        with whole():
+            out["restored"] = _tensors(_trainer_state(tr))
+    return out
 
 
 def _train_main(args, rank):
@@ -264,8 +305,7 @@ def run_case(kind, args, payload, rank, world):
         mesh = parallel.make_mesh(world, "data", device="cpu")
         return _serve(payload, args, mesh, rank)
     if kind == "train":
-        return _train(payload, args,
-                      parallel.make_mesh(world, "data", device="cpu"))
+        return _train(payload, args, _train_mesh(args, world))
     if kind == "trainer_init":
         # Every rank initialises from its own seed; the Trainer holds rank
         # 0's state everywhere. A batch the world does not divide raises.
