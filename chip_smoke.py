@@ -199,6 +199,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
    15's bf16 rules. K1 at the 2-D and TP ranks' N against its plain
    version, timed in turns, with its bound.
 
+19. The closed loop (human_dynamics_tpu_torch.scripts.synthetic_gauntlet,
+   phi mode) at full width: the generator's records written on the card
+   against the same call on the CPU at a small size (numpy-made fields
+   equal, SMPL-derived ones within 1e-5 of their scale, image mode where
+   cv2 is there), then run_gauntlet with feature 2048, 64 train and 8 test
+   tubes of 120 frames, B=8, T=20, --fused, 500 steps checkpointed every
+   250: every metric finite, kp and joints at the last checkpoint below the
+   untrained baseline's, the demo pkl's keys and frame_range, the results
+   JSON and the report; K1's launches over the whole run equal to one per
+   fused step, one per tube the evaluator predicts and one for the demo
+   (and no int8 kernel launched); K1 against its plain version on the
+   operands the run gave it at a training step's N and a tube's, timed in
+   turns with its bound; the loop's wall time, ms per training step, and
+   the phi loader alone on the loop's records (ms per batch).
+
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -356,6 +371,22 @@ DS_FRAMES, DS_SHORT, DS_PHI_N, DS_PHI_BATCH, DS_TIMED = 150, 24, 24, 64, 2
 DS_PHI_REL, DS_LABEL_ATOL = 1e-4, 1e-4
 FIT_ITERS, FIT_BETA_TOL, FIT_LOSS_MAX = 3000, 0.05, 1e-4
 FIT_CPU_ITERS, FIT_CPU_TOL = 100, 1e-4
+# Phase 19: the closed loop (scripts.synthetic_gauntlet, phi mode) at full
+# width: feature 2048, GAUNTLET_TUBES train and GAUNTLET_TEST test tubes of
+# GAUNTLET_FRAMES frames, B=8, T=20, --fused, the generator's default
+# synthetic SMPL of 512 vertices; GAUNTLET_STEPS steps checkpointed every
+# GAUNTLET_SAVE. The generator on the card against the CPU at GEN_SMALL:
+# numpy-made fields equal, SMPL-derived ones (gt3ds, keypoint labels)
+# within GEN_TOL of their scale, max(1, max |x|) (tests/test_torch_gauntlet
+# measured 1.2e-7 between the two packages on the CPU), rendered frames
+# byte-equal where the joints round to the same pixels and at most
+# GEN_PIXEL_SHARE of the pixels different.
+GAUNTLET_TUBES, GAUNTLET_TEST, GAUNTLET_FRAMES = 64, 8, 120
+GAUNTLET_STEPS, GAUNTLET_SAVE = 500, 250
+GEN_SMALL = dict(num_tubes=4, frames_per_tube=24, feature_dim=64,
+                 num_verts=512, seed=0, num_test_tubes=2, crop_size=64)
+GEN_TOL, GEN_PIXEL_SHARE = 1e-5, 1e-2
+N_LOADER_BATCHES = 40
 PROFILE = "--profile" in sys.argv[1:]
 TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
 
@@ -574,14 +605,13 @@ def k1_in_turns(torch, ops):
     return min(k1, k2), min(p1, p2)
 
 
-def k1_bound(smpl_cuda, n):
+def k1_bound(smpl_cuda, n, v=SMPL_VERTS):
     """K1's bound at N = n: the function's own work, without the kernel's
     zero padding (coefficients 217 -> 224, joints 24 -> 32): per vertex and
     frame, the blend and skinning products (2 flop per multiply-add), the
     template add and the 3x4 transform; bytes of the unpadded operands and
     the 3 planes. On the tensor cores each product is three TF32 products.
     Returns (bound ms, by, FP32-pipe bound ms, products, flops, bytes)."""
-    v = SMPL_VERTS
     cd, rc, nj = smpl_cuda.COEF_DIM, smpl_cuda.RT_CH, smpl_cuda.NUM_JOINTS
     products = n * v * 2 * (3 * cd + rc * nj)
     flops = products + n * v * (3 + 18)
@@ -3945,6 +3975,289 @@ def phase_sharded(torch, dev, smpl, smpl_cuda, card):
     return res
 
 
+GEN_SMPL_FIELDS = ("mosh/gt3ds", "image/xys", "image/face_pts",
+                   "image/toe_pts")
+
+
+def compare_generated(np, root_a, root_b, what):
+    """Two generate_data trees: every record field equal, but the SMPL
+    ones within GEN_TOL of their scale and the frames by the pixel rule.
+    Returns (largest scaled SMPL-field error, share of pixels differing)."""
+    import glob
+
+    from human_dynamics_tpu_torch.data.tfrecord import (
+        decode_example,
+        read_tfrecord,
+    )
+
+    def names(root):
+        return sorted(os.path.relpath(p, root) for p in glob.glob(
+            os.path.join(root, "**", "*.tfrecord"), recursive=True))
+
+    check(names(root_a) == names(root_b), f"{what}: other record files")
+    err, differ, total = 0.0, 0, 0
+    for name in names(root_a):
+        recs = [[decode_example(r) for r in read_tfrecord(
+            os.path.join(root, name))] for root in (root_a, root_b)]
+        check(len(recs[0]) == len(recs[1]) > 0, f"{what} {name}: records")
+        for fa, fb in zip(*recs):
+            check(sorted(fa) == sorted(fb), f"{what} {name}: other fields")
+            for k in fa:
+                if k == "image/encoded":
+                    d, t = compare_frames(np, fa, fb, f"{what} {name}")
+                    differ, total = differ + d, total + t
+                elif k in GEN_SMPL_FIELDS:
+                    a, b = (np.asarray(x, np.float32) for x in (fa[k], fb[k]))
+                    e = float(np.abs(a - b).max()) / max(
+                        1.0, float(np.abs(b).max()))
+                    check(e <= GEN_TOL, f"{what} {name} {k}: {e}")
+                    err = max(err, e)
+                else:
+                    check(np.array_equal(np.asarray(fa[k]),
+                                         np.asarray(fb[k])),
+                          f"{what} {name} {k} differs")
+    share = differ / total if total else 0.0
+    check(share <= GEN_PIXEL_SHARE, f"{what}: {share} of the pixels differ")
+    return err, share
+
+
+def compare_frames(np, fa, fb, what):
+    """Frames whose joints round to the same pixels are byte-equal; returns
+    (pixels differing, pixels) after decoding."""
+    import cv2
+
+    n = len(fa["image/encoded"])
+    xy = [np.round(np.concatenate([
+        np.asarray(f[k], np.float32).reshape(n, -1)
+        for k in ("image/xys", "image/face_pts", "image/toe_pts")], 1))
+        for f in (fa, fb)]
+    differ = total = 0
+    for i, (ja, jb) in enumerate(zip(fa["image/encoded"],
+                                     fb["image/encoded"])):
+        if np.array_equal(xy[0][i], xy[1][i]):
+            check(bytes(ja) == bytes(jb), f"{what}: frame {i} differs")
+        a, b = (cv2.imdecode(np.frombuffer(bytes(j), np.uint8),
+                             cv2.IMREAD_COLOR) for j in (ja, jb))
+        differ += int((a != b).any(-1).sum())
+        total += a.shape[0] * a.shape[1]
+    return differ, total
+
+
+def gauntlet_card_vs_cpu(torch, np, dev, tmp):
+    """The generator's records on the card against the same call on the
+    CPU, in phi mode and (where cv2 is importable) image mode."""
+    import importlib.util
+
+    from human_dynamics_tpu_torch.scripts.stability_run import generate_data
+
+    modes = ["phi"] + (["image"] if importlib.util.find_spec("cv2") else [])
+    for mode in modes:
+        roots = []
+        for tag, where in (("card", dev), ("cpu", "cpu")):
+            out = os.path.join(tmp, f"gen_{mode}_{tag}")
+            roots.append(generate_data(out, with_images=mode == "image",
+                                       device=where, **GEN_SMALL)[0])
+        err, share = compare_generated(np, *roots, f"generator {mode}")
+        print(f"gauntlet generator, {mode} mode, {GEN_SMALL}: the card's "
+              f"records against the CPU's: numpy fields equal, SMPL "
+              f"fields within {err:.3e} of their scale (tol {GEN_TOL:g})"
+              + (f", {share:.3e} of the decoded pixels differ (bound "
+                 f"{GEN_PIXEL_SHARE:g})" if mode == "image" else ""))
+    if "image" not in modes:
+        print("gauntlet generator: no cv2 here, image mode not compared")
+
+
+class K1Operands:
+    """Wraps smpl_cuda.blend_skin: counts its calls by N and keeps a copy of
+    the first operands at each N. The launches are counted by the wrapper
+    it calls."""
+
+    def __init__(self, smpl_cuda):
+        self.smpl_cuda, self.by_n, self.ops = smpl_cuda, {}, {}
+
+    def __enter__(self):
+        self.saved = fn = self.smpl_cuda.blend_skin
+
+        def wrapper(*ops):
+            n = ops[0].shape[0]
+            self.by_n[n] = self.by_n.get(n, 0) + 1
+            if n not in self.ops:
+                self.ops[n] = tuple(o.detach().clone() for o in ops)
+            return fn(*ops)
+
+        self.smpl_cuda.blend_skin = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.smpl_cuda.blend_skin = self.saved
+
+
+def phase_gauntlet(torch, np, dev, K, smpl_cuda, card):
+    """Phase 19: the phi-mode synthetic gauntlet at full width, through
+    scripts.synthetic_gauntlet.run_gauntlet: the generator held to the CPU,
+    K1's launches over the run against what the code makes, and K1 held to
+    its plain version at the run's N values."""
+    import importlib.util
+    import pickle
+    import tempfile
+
+    from human_dynamics_tpu_torch.infer import WindowSchedule
+    from human_dynamics_tpu_torch.scripts import synthetic_gauntlet as G
+    from human_dynamics_tpu_torch.train import trainer as T
+    from human_dynamics_tpu_torch.data.loader import TrainDataPipeline
+    from human_dynamics_tpu_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gauntlet_card_vs_cpu(torch, np, dev, tmp)
+
+        # Without cv2 the numpy mesh metric cannot run: the device one.
+        device_metrics = importlib.util.find_spec("cv2") is None
+        out = os.path.join(tmp, "gauntlet")
+        args = G.build_arg_parser().parse_args(
+            ["--out", out, "--device", str(dev), "--fused",
+             "--num_steps", str(GAUNTLET_STEPS),
+             "--save_step", str(GAUNTLET_SAVE),
+             "--num_tubes", str(GAUNTLET_TUBES),
+             "--num_test_tubes", str(GAUNTLET_TEST),
+             "--frames_per_tube", str(GAUNTLET_FRAMES),
+             "--batch_size", str(TRAIN_B), "--T", str(TRAIN_T),
+             "--feature_dim", str(TRAIN_C),
+             "--report", os.path.join(tmp, "report.md")]
+            + (["--device_metrics"] if device_metrics else []))
+        step_times = []
+        step = T.Trainer.step
+
+        def timed_step(self, batch):
+            metrics = step(self, batch)
+            step_times.append(time.perf_counter())
+            return metrics
+
+        reset_all(K, smpl_cuda)
+        T.Trainer.step = timed_step
+        try:
+            with K1Operands(smpl_cuda) as k1:
+                t0 = time.perf_counter()
+                result = G.run_gauntlet(args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            T.Trainer.step = step
+        counts, _ = read_counts(K, smpl_cuda)
+
+        table = {int(k): v for k, v in result["table"].items()}
+        steps = sorted(table)
+        ckpts = steps[1:]
+        check(ckpts == list(range(GAUNTLET_SAVE, GAUNTLET_STEPS + 1,
+                                  GAUNTLET_SAVE)),
+              f"gauntlet: checkpoints at {ckpts}")
+        for s in steps:
+            print(f"gauntlet [{card}] step {s}: " + ", ".join(
+                f"{k} {table[s][k]:.5f}" for k in G.METRIC_KEYS))
+            for k in G.METRIC_KEYS:
+                check(np.isfinite(table[s][k]), f"gauntlet: {k} at step {s}")
+        check(all(np.isfinite(v) for v in result["const_table"].values()),
+              "gauntlet: a constant-baseline metric is not finite")
+        first, last = table[0], table[steps[-1]]
+        for k in ("kp", "joints"):
+            check(last[k] < first[k], f"gauntlet: {k} {last[k]} at step "
+                  f"{steps[-1]} is not below the untrained {first[k]}")
+        print(f"gauntlet gates after {GAUNTLET_STEPS} steps (calibrated for "
+              f"4000; printed, not checked here): {result['gates']}")
+        with open(os.path.join(out, "demo_out", "hmmr_output.pkl"),
+                  "rb") as f:
+            preds = pickle.load(f)
+        # The predictor's keys and their delta stacks (the JAX package's
+        # schema), and the gauntlet's frame_range.
+        heads = ("cams", "joints", "kps", "poses", "shapes", "verts",
+                 "omegas")
+        want_keys = {"frame_range", *heads, *(f"{k}_delta" for k in heads)}
+        check(set(preds) == want_keys, f"gauntlet: demo pkl keys "
+              f"{sorted(preds)}")
+        check(preds["frame_range"].tolist() == [0, GAUNTLET_FRAMES]
+              and preds["omegas"].shape == (GAUNTLET_FRAMES, 85),
+              "gauntlet: demo pkl frame_range or omegas shape")
+        for path in (os.path.join(out, "gauntlet_results.json"),
+                     args.report):
+            check(os.path.exists(path), f"gauntlet: {path} not written")
+
+        # K1: one launch per fused step, per tube the evaluator predicts
+        # (every test tube once per checkpoint and for the baseline;
+        # run_const reads the prediction cache, or predicts again with
+        # device_metrics, which keeps no cache), and one for the demo.
+        n_steps = len(step_times)
+        tubes = GAUNTLET_TEST * (len(ckpts) + 1 + int(device_metrics))
+        want = n_steps + tubes + 1
+        sched = WindowSchedule(GAUNTLET_FRAMES, TRAIN_B, TRAIN_T,
+                               Config().fov)
+        eval_n = sched.count * TRAIN_B * sched.good_frames * 3
+        print(f"gauntlet: K1 launched {counts[smpl_cuda.KERNEL_NAME]} times "
+              f"(want {want}: {n_steps} fused steps, {tubes} tubes "
+              f"predicted, 1 demo clip); calls by N {k1.by_n}; int8 "
+              f"kernels {dict((k, v) for k, v in counts.items() if k != smpl_cuda.KERNEL_NAME)}")
+        check(n_steps == GAUNTLET_STEPS, f"gauntlet: {n_steps} steps")
+        check(counts[smpl_cuda.KERNEL_NAME] == want,
+              f"gauntlet: K1 launched {counts[smpl_cuda.KERNEL_NAME]} "
+              f"times, want {want}")
+        check(k1.by_n == {TRAIN_N: n_steps, eval_n: tubes + 1},
+              f"gauntlet: K1 calls by N {k1.by_n}")
+        check(all(v == 0 for k, v in counts.items()
+                  if k != smpl_cuda.KERNEL_NAME),
+              f"gauntlet: int8 kernels launched: {counts}")
+
+        # The loader alone on the loop's records: the prefetch thread's
+        # rate, iterated as fast as it yields.
+        pipeline = TrainDataPipeline(Config(
+            data_dir=os.path.join(out, "data"), datasets=("synth", "h36m"),
+            mocap_datasets=("CMU",), batch_size=TRAIN_B, T=TRAIN_T,
+            feature_dim=TRAIN_C))
+        try:
+            batches = iter(pipeline)
+            for _ in range(5):
+                next(batches)
+            t0 = time.perf_counter()
+            for _ in range(N_LOADER_BATCHES):
+                next(batches)
+            loader_ms = (time.perf_counter() - t0) / N_LOADER_BATCHES * 1e3
+        finally:
+            pipeline.close()
+
+        # K1 against its plain version on the operands the run gave it.
+        v = k1.ops[TRAIN_N][2].shape[-1]
+        res["k1"] = {}
+        for what, n in (("train", TRAIN_N), ("eval", eval_n)):
+            ops = k1.ops[n]
+            err = max(max_abs(a, b) for a, b in zip(
+                smpl_cuda.blend_skin(*ops),
+                smpl_cuda.blend_skin_reference(*ops)))
+            check(err <= K1_PLANES_TOL,
+                  f"gauntlet: K1 planes at N = {n}: {err}")
+            k_ms, p_ms = k1_in_turns(torch, ops)
+            b_ms, b_by = k1_bound(smpl_cuda, n, v)[:2]
+            res["k1"][what] = {"n": n, "v": v, "ms": k_ms, "plain_ms": p_ms,
+                               "bound_ms": b_ms, "err": err}
+            print(f"K1 N={n} V={v} (the gauntlet's {what} calls): kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}); planes within {err:.3e} of plain (tol "
+                  f"{K1_PLANES_TOL:g})")
+
+    sec = result["seconds"]
+    ms_step = (step_times[-1] - step_times[9]) / (n_steps - 10) * 1e3
+    eval_s = {k: round(t, 3) for k, t in sec["eval"].items()}
+    print(f"gauntlet timing [{card}]: {wall:.1f} s for the loop (generate "
+          f"{sec['generate']:.1f} s, train.main {sec['train']:.1f} s, "
+          f"eval per checkpoint {eval_s} s), {ms_step:.2f} ms per training "
+          f"step (host clock, steps 10-{n_steps}, checkpoint saves "
+          f"included); the phi loader alone {loader_ms:.2f} ms per batch "
+          f"({N_LOADER_BATCHES} batches of the loop's records, host clock)")
+    print(f"phase 19 (the synthetic gauntlet) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    res.update(launches=counts[smpl_cuda.KERNEL_NAME], steps=n_steps,
+               ms_step=ms_step, loader_ms=loader_ms)
+    return res
+
+
 def main():
     import numpy as np
     import torch
@@ -4144,6 +4457,9 @@ def main():
     # Phase 18: 2-D (data x time) and tensor-parallel training.
     sh = phase_sharded(torch, dev, smpl, smpl_cuda, card)
 
+    # Phase 19: the synthetic gauntlet, phi mode.
+    ga = phase_gauntlet(torch, np, dev, K, smpl_cuda, card)
+
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [
         dict(name=smpl_cuda.KERNEL_NAME, source=csrc + "smpl_blend_skin.cu",
@@ -4168,6 +4484,16 @@ def main():
              tp_n=sh["k1"]["tp"]["n"], tp_ms=sh["k1"]["tp"]["ms"],
              tp_plain_ms=sh["k1"]["tp"]["plain_ms"],
              tp_bound_ms=sh["k1"]["tp"]["bound_ms"],
+             gauntlet_launches=ga["launches"], gauntlet_steps=ga["steps"],
+             gauntlet_v=ga["k1"]["train"]["v"],
+             gauntlet_train_n=ga["k1"]["train"]["n"],
+             gauntlet_train_ms=ga["k1"]["train"]["ms"],
+             gauntlet_train_plain_ms=ga["k1"]["train"]["plain_ms"],
+             gauntlet_train_bound_ms=ga["k1"]["train"]["bound_ms"],
+             gauntlet_eval_n=ga["k1"]["eval"]["n"],
+             gauntlet_eval_ms=ga["k1"]["eval"]["ms"],
+             gauntlet_eval_plain_ms=ga["k1"]["eval"]["plain_ms"],
+             gauntlet_eval_bound_ms=ga["k1"]["eval"]["bound_ms"],
              **k1),
         dict(name=K.BLOCK, source=csrc + "k2_unit.cu",
              replaces="human_dynamics_tpu/ops/resnet_int8_pallas.py:151",
@@ -4190,7 +4516,10 @@ def main():
     # launches over the --fast tracks, one per track, and its times at the
     # track's N); on the 2-D and TP steps (phase 18: its launches over the
     # world-1 steps of each, one per step, and its times at the N of a
-    # rank of the two-rank 2-D and TP steps).
+    # rank of the two-rank 2-D and TP steps); and on the synthetic
+    # gauntlet (phase 19: its launches over the whole loop, and its times
+    # at the N of a training step and of a test tube, at the generator's
+    # V).
     train_keys = ("train_launches", "train_steps", "train_n", "train_ms",
                   "train_plain_ms", "train_bound_ms", "image_train_launches",
                   "image_train_steps", "sharded_launches", "sharded_n",
@@ -4200,7 +4529,12 @@ def main():
                   "demo_bound_ms", "mesh2d_launches", "mesh2d_n",
                   "mesh2d_ms", "mesh2d_plain_ms", "mesh2d_bound_ms",
                   "tp_launches", "tp_n", "tp_ms", "tp_plain_ms",
-                  "tp_bound_ms", "byte_floor_ms", "conv_chain_ms")
+                  "tp_bound_ms", "gauntlet_launches", "gauntlet_steps",
+                  "gauntlet_v", "gauntlet_train_n", "gauntlet_train_ms",
+                  "gauntlet_train_plain_ms", "gauntlet_train_bound_ms",
+                  "gauntlet_eval_n", "gauntlet_eval_ms",
+                  "gauntlet_eval_plain_ms", "gauntlet_eval_bound_ms",
+                  "byte_floor_ms", "conv_chain_ms")
     print(json.dumps({"kernels": [
         {k: dict(kern, route="cuda")[k] for k in keys
          + tuple(k for k in train_keys if k in kern)} for kern in kernels

@@ -53,18 +53,40 @@ def default_mean_omega() -> np.ndarray:
     return mean
 
 
+def _h5_dataset(group, name):
+    """A dataset of an h5 file, at the root or under a '/data' group (the
+    deepdish layout)."""
+    if name in group:
+        return np.asarray(group[name])
+    if "data" in group and name in group["data"]:
+        return np.asarray(group["data"][name])
+    raise KeyError(
+        f"mean-omega file is missing dataset '{name}' "
+        f"(available: {list(group.keys())})"
+    )
+
+
 def load_mean_omega(path: str) -> np.ndarray:
-    """Mean Omega (1, 85) from an npz with 'pose' and 'shape', with the
+    """Mean Omega (1, 85) from ``neutral_smpl_meanwjoints.h5`` (h5py, read
+    lazily) or an npz with the same 'pose' and 'shape' arrays, with the
     reference's overrides: cam [0.9, 0, 0], global rotation zeroed and then
     pose[0] = pi."""
     if path.endswith((".h5", ".hdf5")):
-        raise ValueError(
-            f"{path!r}: h5 mean files need h5py, which the port does not "
-            "use; convert it to an npz with 'pose' and 'shape' arrays"
-        )
-    with np.load(path) as data:
-        pose = np.asarray(data["pose"]).reshape(72).astype(np.float64)
-        shape = np.asarray(data["shape"]).reshape(10).astype(np.float64)
+        try:
+            import h5py
+        except ImportError as exc:
+            raise ImportError(
+                f"{path!r}: reading an h5 mean-omega file needs h5py, which "
+                "is not installed; install it, or convert the file to an "
+                "npz with 'pose' and 'shape' arrays"
+            ) from exc
+        with h5py.File(path, "r") as f:
+            pose = _h5_dataset(f, "pose").reshape(72).astype(np.float64)
+            shape = _h5_dataset(f, "shape").reshape(10).astype(np.float64)
+    else:
+        with np.load(path) as data:
+            pose = np.asarray(data["pose"]).reshape(72).astype(np.float64)
+            shape = np.asarray(data["shape"]).reshape(10).astype(np.float64)
     cams = np.array([0.9, 0.0, 0.0])
     pose[:3] = 0.0
     pose[0] = np.pi

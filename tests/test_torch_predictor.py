@@ -315,8 +315,8 @@ def test_port_imports_no_jax():
     )
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
-    # the demo, viz/, datasets/ and utils/autorestart included
-    assert int(proc.stdout.split()[-1]) >= 71
+    # the demo, viz/, datasets/, utils/autorestart and scripts/ included
+    assert int(proc.stdout.split()[-1]) >= 76
 
 
 def test_chip_smoke_fails_without_gpu():
