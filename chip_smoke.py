@@ -214,6 +214,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
    turns with its bound; the loop's wall time, ms per training step, and
    the phi loader alone on the loop's records (ms per batch).
 
+20. The int8 root stems and the int8 residual stream, at full width: the
+   static int8 trunk on 120 frames of 224x224 with int8_root True, "wfold"
+   and "u8" (on the uint8 frames), int8_stream=True, int8_root=True with
+   int8_stream=(1,), and use_pallas=True with int8_stream=(1,) (a streamed
+   block 1 handing over to K2), each run's launches of the stem, the int8
+   pool, K2, the standalone pre-activation, the convs by epilogue and every
+   pre-activation by mode held to models.resnet_int8.plan_launches, its phi
+   finite and near fp32 and the base trunk; every recorded call of the
+   stem, the pool, the stream epilogue (int32 accumulators, the int8
+   stream, the fused mode-2 / mode-3 pre-activation) and the int8-input
+   pre-activation replayed against its plain version (equal); the stems,
+   the pool, the stream epilogue and the mode-2 pre-activation timed in
+   turns with their plain versions, beside the bf16 stem (permute, cuDNN
+   7x7/2 conv and bias; max_pool_same and the permute back); the bench
+   predictor with int8_root="u8" on the 480-frame uint8 clip (launches per
+   clip as its plan predicts, omegas within 0.5 of the bench config's,
+   both clips timed in turns), and a uint8 stream through it against its
+   offline output.
+
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -387,6 +406,21 @@ GEN_SMALL = dict(num_tubes=4, frames_per_tube=24, feature_dim=64,
                  num_verts=512, seed=0, num_test_tubes=2, crop_size=64)
 GEN_TOL, GEN_PIXEL_SHARE = 1e-5, 1e-2
 N_LOADER_BATCHES = 40
+# Phase 20: the int8 trunk's int8_root / int8_stream variants at CHUNK
+# frames, (name, apply_int8_static options, uint8 frames); each held to the
+# base static trunk and to fp32 by the JAX test's bounds
+# (tests/test_resnet_int8.py:441-444); the clip timed in N_ROOT_TURNS
+# rounds of bench, bench + u8, bench + u8, bench.
+ROOT_RUNS = (
+    ("s2d", dict(int8_root=True), False),
+    ("wfold", dict(int8_root="wfold"), False),
+    ("u8", dict(int8_root="u8"), True),
+    ("stream", dict(int8_stream=True), False),
+    ("s2d_stream_1", dict(int8_root=True, int8_stream=(1,)), False),
+    ("k2_stream_1", dict(use_pallas=True, int8_stream=(1,)), False),
+)
+ROOT_FP32_COS, ROOT_REL = 0.97, 0.15
+N_ROOT_TURNS = 2
 PROFILE = "--profile" in sys.argv[1:]
 TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
 
@@ -490,8 +524,12 @@ class Recorder:
 
 
 def reset_counts(K):
-    """Zero the int8 kernels' launch counters, by wrapper and by path."""
-    for counts in (K.LAUNCHES, K.PATH_LAUNCHES):
+    """Zero the int8 kernels' launch counters: by wrapper, by path, by
+    epilogue, pre-activations by mode, and the int8 stem's and pool's."""
+    from human_dynamics_tpu_torch.ops import int8_root_cuda as R
+
+    for counts in (K.LAUNCHES, K.PATH_LAUNCHES, K.EPILOGUE_LAUNCHES,
+                   K.PREACT_MODE_LAUNCHES, R.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -4258,6 +4296,357 @@ def phase_gauntlet(torch, np, dev, K, smpl_cuda, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the int8 root stems and the int8 residual stream
+# ---------------------------------------------------------------------------
+
+
+def root_counts(K, R):
+    """The launch counts phase 20 holds to models.resnet_int8.plan_launches:
+    the stem and the pool, K2's units, the standalone pre-activations, the
+    convs by epilogue and every pre-activation by mode."""
+    return {"root": R.LAUNCHES[R.ROOT], "pool": R.LAUNCHES[R.POOL],
+            "block": K.LAUNCHES[K.BLOCK], "preact": K.LAUNCHES[K.PREACT],
+            "conv": {e: K.EPILOGUE_LAUNCHES[e]
+                     for e in ("dequant", "requant", "stream")},
+            "preact_modes": dict(K.PREACT_MODE_LAUNCHES)}
+
+
+def check_root_counts(K, R, plan, what):
+    """The launches of one counted run against what its plan predicts."""
+    from human_dynamics_tpu_torch.models import resnet_int8 as T
+
+    got, want = root_counts(K, R), T.plan_launches(plan)
+    n_conv = sum(want["conv"].values())
+    check(got == want and K.LAUNCHES[K.CONV] == n_conv
+          and sum(K.EPILOGUE_LAUNCHES.values()) == n_conv
+          and sum(K.PATH_LAUNCHES.values()) == n_conv,
+          f"{what}: launches {got} (conv {dict(K.LAUNCHES)}, by epilogue "
+          f"{dict(K.EPILOGUE_LAUNCHES)}), the plan predicts {want}")
+    return got
+
+
+def stem_bound(args, kw):
+    """(bound ms, by, ops, bytes) of one stem call: the contraction over
+    the fold's K (2 ops a multiply-add) at the int8 rate; the frames, the
+    weights and the epilogue operands read once, the int8 map written."""
+    from human_dynamics_tpu_torch.ops import int8_root_cuda as R
+
+    x, wt, mul, add = args
+    ho, wo = R.root_geometry(x.shape[1], x.shape[2], kw["fold"])
+    m = x.shape[0] * ho * wo
+    ops = 2 * m * wt.shape[0] * wt.shape[1]
+    b = nbytes(x, wt, mul, add) + m * wt.shape[0]
+    return bound_ms(ops, INT8_OPS, b) + (ops, b)
+
+
+def stream_conv_bound(torch, K, xq, wt, kw):
+    """(operations, bytes) of one stream-epilogue conv call: the shortcut
+    counted as read once at its stride (a strided int8 shortcut is read at
+    a quarter of its pixels), the int8 stream and any fused
+    pre-activation written once."""
+    ks, ho, wo = K.conv_geometry(xq, wt, 1)
+    m, cout = xq.shape[0] * ho * wo, wt.shape[0]
+    res = kw["residual"]
+    res_b = m * cout * res.element_size()
+    b = nbytes(xq, wt, kw["mul"], kw["add"], kw["res_scale"]) + res_b + m * cout
+    pre = kw.get("preact")
+    if pre is not None:
+        b += nbytes(pre.pa, pre.pb, pre.s, pre.ds) + m * cout
+    return 2 * m * wt.shape[1] * cout, b
+
+
+def replay_root_calls(torch, K, R, calls, what):
+    """Every recorded call of phase 20's kernels, the kernel against its
+    plain version on the card: the stem's and the pool's int8 outputs, the
+    stream conv's int32 accumulators, int8 stream and fused pre-activation,
+    and the standalone mode-2 / mode-3 pre-activations, equal. Returns the
+    largest difference by kind (0 when equal)."""
+    err = {"root": 0.0, "pool": 0.0, "stream": 0.0, "preact_s8": 0.0}
+    n = {k: 0 for k in err}
+    with torch.no_grad():
+        for name, args, kw in calls:
+            if name == "root_stem":
+                got = R.root_stem(*args, **kw)
+                want = R.root_stem_reference(*args, **kw)
+                key = "root"
+            elif name == "max_pool_s8":
+                got = R.max_pool_s8(*args, **kw)
+                want = R.max_pool_s8_reference(*args, **kw)
+                key = "pool"
+            elif name == "preact_quant" and kw.get("mode") in (2, 3):
+                got = K.preact_quant(*args, **kw)
+                want = K.preact_quant_reference(*args, **kw)
+                key = "preact_s8"
+            elif name == "conv_s8" and kw.get("epilogue") == "stream":
+                xq, wt, stride = args
+                acc = K.conv_s8(xq, wt, stride)
+                acc_ref = K.conv_s8_reference(xq, wt, stride)
+                check(torch.equal(acc, acc_ref),
+                      f"{what}: stream conv accumulators differ")
+                got = K.conv_s8(xq, wt, stride, **kw)
+                want = K.epilogue_reference(acc_ref, **kw)
+                if kw.get("preact") is not None:
+                    check(torch.equal(got[1], want[1]), f"{what}: the stream "
+                          f"conv's fused mode-{kw['preact'].mode} "
+                          f"pre-activation differs")
+                    err["stream"] = max(err["stream"],
+                                        max_abs(got[1], want[1]))
+                    got, want = got[0], want[0]
+                key = "stream"
+            else:
+                continue
+            n[key] += 1
+            check(torch.equal(got, want),
+                  f"{what}: {name} differs from its plain version")
+            err[key] = max(err[key], max_abs(got, want))
+    print(f"{what}: replayed {n} calls of the stem, the pool, the stream "
+          f"epilogue and the int8-input pre-activation: equal to their plain "
+          f"versions (max abs {err})")
+    return err, n
+
+
+def bf16_stem_parts(torch, head, x):
+    """The bf16 stem the port runs without int8_root, in its two timed
+    parts: the NHWC -> NCHW permute, cuDNN's bf16 7x7/2 conv and the bias;
+    then max_pool_same and the permute back (models/resnet_int8._root)."""
+    import torch.nn.functional as F
+    from human_dynamics_tpu_torch.models.resnet import max_pool_same
+
+    w = head["root/w"].permute(3, 2, 0, 1)
+
+    def conv():
+        y = F.conv2d(x.to(torch.bfloat16).permute(0, 3, 1, 2), w, stride=2,
+                     padding=3)
+        return y + head["root/b"][:, None, None]
+
+    y = conv()
+    return conv, lambda: max_pool_same(y).permute(0, 2, 3, 1).contiguous()
+
+
+def phase_int8_root(torch, np, model, frames, calib, bench, smpl, kw, K,
+                    smpl_cuda, card):
+    """Phase 20: the int8 root stems and the int8 residual stream."""
+    from human_dynamics_tpu_torch.infer import (HmmrPredictor,
+                                                StreamingPredictor)
+    from human_dynamics_tpu_torch.models import resnet_int8 as T
+    from human_dynamics_tpu_torch.ops import int8_root_cuda as R
+
+    raw = frames[:CHUNK].contiguous()
+    x = HmmrPredictor._normalise(raw)
+    with torch.no_grad():
+        qp = T.prepare_int8_params(model.resnet_v2_50)
+        scales = T.calibrate_int8_scales(
+            qp, calib.float() * (2.0 / 255.0) - 1.0)
+        base = T.run_int8_static(T.prepare_int8_static(qp, scales), x)
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            phi_fp32 = model.resnet_v2_50(x)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a, b, dim=1).min())
+
+    # Every variant, counted against its plan; its calls recorded.
+    runs, totals = {}, {"root": 0, "pool": 0, "stream": 0, "mode2": 0}
+    names = ["root_stem", "max_pool_s8", "conv_s8", "preact_quant",
+             "fused_block_pq"]
+    for name, opts, u8 in ROOT_RUNS:
+        images = raw if u8 else x
+        with torch.no_grad():
+            plan = T.prepare_int8_static(qp, scales, **opts)
+            T.run_int8_static(plan, images)  # warm-up; makes the u8 map
+            torch.cuda.synchronize()
+            with Recorder(T, names) as rec:
+                reset_counts(K)
+                phi = T.run_int8_static(plan, images)
+                torch.cuda.synchronize()
+                counts = check_root_counts(K, R, plan, f"int8 trunk {name}")
+        totals["root"] += counts["root"]
+        totals["pool"] += counts["pool"]
+        totals["stream"] += counts["conv"]["stream"]
+        totals["mode2"] += counts["preact_modes"][2]
+        c_f, rel = cos(phi, phi_fp32), float((phi - base).norm() / base.norm())
+        print(f"int8 trunk {name} {opts}, {CHUNK} frames of {IMG}x{IMG} "
+              f"({'uint8' if u8 else 'f32'}): launches {counts}, as the plan "
+              f"predicts; phi finite, min cos to fp32 {c_f:.6f} (>= "
+              f"{ROOT_FP32_COS}), rel to the base int8 trunk {rel:.4f} (<= "
+              f"{ROOT_REL})")
+        check(bool(torch.isfinite(phi).all()) and c_f >= ROOT_FP32_COS
+              and rel <= ROOT_REL, f"int8 trunk {name} is off")
+        runs[name] = {"plan": plan, "calls": rec.calls, "images": images}
+    calls = [c for r in runs.values() for c in r["calls"]]
+    err, replayed = replay_root_calls(torch, K, R, calls, "phase 20")
+    for key, want in (("root", 3), ("pool", 4), ("stream", 1),
+                      ("preact_s8", 1)):
+        check(replayed[key] >= want, f"phase 20 replayed {replayed[key]} "
+              f"{key} calls, want at least {want}")
+
+    # Times, kernel and plain version in turns; the bf16 stem beside them.
+    out = {}
+    lib_conv, lib_pool = bf16_stem_parts(torch, runs["s2d"]["plan"]["head"],
+                                         x)
+    with torch.no_grad():
+        lib_conv_ms = cuda_ms(lib_conv, 10)
+        lib_pool_ms = cuda_ms(lib_pool, 10)
+        lib_ms = cuda_ms(lambda: T._root(runs["s2d"]["plan"]["head"], x),
+                         10)
+        print(f"bf16 stem (the port's without int8_root), {CHUNK} frames: "
+              f"permute + cuDNN bf16 7x7/2 conv + bias {lib_conv_ms:.4f} ms, "
+              f"max_pool_same + permute back {lib_pool_ms:.4f} ms, the "
+              f"whole _root {lib_ms:.4f} ms (CUDA events, 10 runs)")
+        stems = {}
+        for name in ("s2d", "wfold", "u8"):
+            (_, args, kwargs), = [c for c in runs[name]["calls"]
+                                  if c[0] == "root_stem"]
+            k_ms, p_ms = in_turns(lambda: R.root_stem(*args, **kwargs),
+                                  lambda: R.root_stem_reference(*args,
+                                                                **kwargs))
+            b_ms, b_by, ops, b = stem_bound(args, kwargs)
+            stems[name] = (k_ms, p_ms, b_ms, b_by)
+            print(f"  stem {name} ({kwargs['fold']}, {kwargs['kind']} "
+                  f"frames, K {args[1].shape[1]}): kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                  f"{ops / 1e9:.2f} GOP, {b / 1e6:.1f} MB; "
+                  f"{ops / k_ms / 1e9:.1f} TOP/s); bf16 stem conv "
+                  f"{lib_conv_ms:.4f} ms")
+        k_ms, p_ms, b_ms, b_by = stems["u8"]
+        out["root"] = {"max_abs_err": err["root"], "ms": k_ms,
+                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": lib_conv_ms, "launches": totals["root"],
+                       "s2d_ms": stems["s2d"][0], "wfold_ms": stems["wfold"][0]}
+        pools = {}
+        for name in ("u8", "s2d_stream_1"):
+            (_, args, kwargs), = [c for c in runs[name]["calls"]
+                                  if c[0] == "max_pool_s8"]
+            k_ms, p_ms = in_turns(lambda: R.max_pool_s8(*args, **kwargs),
+                                  lambda: R.max_pool_s8_reference(*args,
+                                                                  **kwargs))
+            y, pre = args[0], kwargs.get("preact")
+            n_out = (y.shape[0] * R.same_pool_geometry(y.shape[1])[0]
+                     * R.same_pool_geometry(y.shape[2])[0] * y.shape[3])
+            b = y.numel() + n_out
+            b += nbytes(pre.pa, pre.pb, pre.s, pre.ds) if pre else 0
+            b_ms, b_by = bound_ms(8 * n_out, FP32_OPS, b)
+            pools[name] = (k_ms, p_ms, b_ms, b_by, pre.mode if pre else None)
+            print(f"  pool {tuple(y.shape)} -> pre-activation mode "
+                  f"{pools[name][4]}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                  f"{b / 1e6:.1f} MB); max_pool_same + permute on bf16 "
+                  f"{lib_pool_ms:.4f} ms")
+        k_ms, p_ms, b_ms, b_by, _ = pools["u8"]
+        out["pool"] = {"max_abs_err": err["pool"], "ms": k_ms,
+                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": lib_pool_ms, "launches": totals["pool"],
+                       "mode2_ms": pools["s2d_stream_1"][0]}
+        # The stream epilogue: every stream conv of the all-blocks run.
+        st = {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0, "n": 0}
+        for name_, args, kwargs in runs["stream"]["calls"]:
+            if name_ != "conv_s8" or kwargs.get("epilogue") != "stream":
+                continue
+            xq, wt, stride = args
+            d_ms = min(device_ms(lambda: K.conv_s8(xq, wt, stride, **kwargs))
+                       for _ in range(2))
+            _, p_ms = in_turns(
+                lambda: K.conv_s8(xq, wt, stride, **kwargs),
+                lambda: K.epilogue_reference(
+                    K.conv_s8_reference(xq, wt, stride), **kwargs), 2, 2)
+            ops, b = stream_conv_bound(torch, K, xq, wt, kwargs)
+            st["ms"] += d_ms
+            st["plain_ms"] += p_ms
+            st["ops"] += ops
+            st["bytes"] += b
+            st["n"] += 1
+        s_bound, s_by = bound_ms(st["ops"], INT8_OPS, st["bytes"])
+        print(f"  stream epilogue: the {st['n']} conv3 calls of the "
+              f"int8_stream=True chunk: kernel device {st['ms']:.4f} ms, "
+              f"plain {st['plain_ms']:.4f} ms, bound {s_bound:.4f} ms "
+              f"({s_by}: {st['ops'] / 1e12:.3f} TOP, {st['bytes'] / 1e9:.3f} "
+              f"GB)")
+        out["stream"] = {"max_abs_err": err["stream"], "ms": st["ms"],
+                         "plain_ms": st["plain_ms"], "bound_ms": s_bound,
+                         "bound_by": s_by, "library_ms": None,
+                         "launches": totals["stream"]}
+        (_, args, kwargs), = [
+            c for c in runs["stream"]["calls"]
+            if c[0] == "preact_quant" and c[2].get("mode") == 2]
+        k_ms, p_ms = in_turns(lambda: K.preact_quant(*args, **kwargs),
+                              lambda: K.preact_quant_reference(*args,
+                                                               **kwargs))
+        xin = args[0]
+        b = nbytes(xin, args[1], args[2]) + xin.numel()
+        p_bound, p_by = bound_ms(3 * xin.numel(), FP32_OPS, b)
+        print(f"  mode-2 pre-activation, standalone, {tuple(xin.shape)} "
+              f"int8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{p_bound:.4f} ms ({p_by})")
+        out["preact_s8"] = {"max_abs_err": err["preact_s8"], "ms": k_ms,
+                            "plain_ms": p_ms, "bound_ms": p_bound,
+                            "bound_by": p_by, "library_ms": None,
+                            "launches": totals["mode2"]}
+
+    # The predictor in the bench configuration with int8_root="u8".
+    u8 = HmmrPredictor(model, None, smpl, int8_encoder=True,
+                       int8_calibration=calib, int8_root="u8",
+                       bf16_temporal=True, use_fused_smpl=True, **kw)
+    chunks = -(-len(frames) // u8.encode_chunk)
+    want_out = bench.predict_all_images(frames, as_numpy=False)
+    reset_all(K, smpl_cuda)
+    got = u8.predict_all_images(frames, as_numpy=False)
+    torch.cuda.synchronize()
+    counts = root_counts(K, R)
+    check_predictor_outputs(torch, got, "bench config + int8_root='u8'")
+    per_chunk = T.plan_launches(u8._int8_plan)
+    want_counts = {k: (v * chunks if isinstance(v, int)
+                       else {m: c * chunks for m, c in v.items()})
+                   for k, v in per_chunk.items()}
+    print(f"predictor bench config + int8_root='u8', one {len(frames)}-frame "
+          f"uint8 clip ({chunks} chunks): launches {counts}, K1 "
+          f"{smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME]}")
+    check(counts == want_counts and smpl_cuda.LAUNCHES[
+        smpl_cuda.KERNEL_NAME] == 1, f"u8 clip launches: want {want_counts}")
+    out["root"]["clip_launches"] = counts["root"]
+    out["pool"]["clip_launches"] = counts["pool"]
+    err = max_abs(got["omegas"], want_out["omegas"])
+    print(f"predictor bench config + int8_root='u8' against the bench "
+          f"config: omegas max abs diff {err:.4f} (tol {OMEGA_TOL})")
+    check(err < OMEGA_TOL, f"u8 omegas differ from the bench config by {err}")
+    # The clip in turns with the bench config.
+    preds = {"bench": bench, "bench_u8": u8}
+    times = {name: [] for name in preds}
+    order = ["bench", "bench_u8"]
+    for name in (order + order[::-1]) * N_ROOT_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds[name].predict_all_images(frames, as_numpy=False)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        med = float(np.median(ts))
+        print(f"smoke timing (not a benchmark) [{card}]: predictor {name}: "
+              f"{med * 1e3:.2f} ms/clip of {len(frames)} uint8 frames "
+              f"(median of {len(ts)}, in turns; all ms "
+              f"{[round(t * 1e3, 2) for t in ts]})")
+    out["clip_ms"] = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+    # A uint8 stream through the byte-direct stem against its offline output.
+    sp = StreamingPredictor(u8)
+    n_calls, emits = stream_encoder_calls(sp, len(frames))
+    reset_all(K, smpl_cuda)
+    emissions = feed_pieces(sp, frames, STREAM_PIECES)
+    torch.cuda.synchronize()
+    check(R.LAUNCHES[R.ROOT] == R.LAUNCHES[R.POOL] == n_calls
+          and len(emissions) == emits and K.LAUNCHES[K.PREACT] == 0,
+          f"u8 stream: {R.LAUNCHES} for {n_calls} encoder calls, "
+          f"{dict(K.LAUNCHES)}")
+    check_stream(torch, "streaming bench config + int8_root='u8' (uint8 "
+                 "pieces)", u8, emissions, got)
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -4289,8 +4678,11 @@ def main():
           f"{torch.backends.cudnn.allow_tf32}")
 
     # Phase 1: build.
+    from human_dynamics_tpu_torch.ops import int8_root_cuda
+
     build_all(load_kernel_libraries, [smpl_cuda.KERNEL_NAME, K.KERNEL_NAME,
-                                      K.K2_KERNEL_NAME])
+                                      K.K2_KERNEL_NAME,
+                                      int8_root_cuda.KERNEL_NAME])
 
     # Phase 2: K1 against its plain version, TF32 off for the plain products.
     smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS,
@@ -4460,6 +4852,12 @@ def main():
     # Phase 19: the synthetic gauntlet, phi mode.
     ga = phase_gauntlet(torch, np, dev, K, smpl_cuda, card)
 
+    # Phase 20: the int8 root stems and the int8 residual stream.
+    t20 = time.perf_counter()
+    ir = phase_int8_root(torch, np, model, frames, calib, bench, smpl, kw, K,
+                         smpl_cuda, card)
+    print(f"phase 20 took {time.perf_counter() - t20:.1f} s")
+
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [
         dict(name=smpl_cuda.KERNEL_NAME, source=csrc + "smpl_blend_skin.cu",
@@ -4504,6 +4902,21 @@ def main():
         dict(name=K.PREACT, source=csrc + "resnet_int8.cu",
              replaces="human_dynamics_tpu/models/resnet_int8.py:578",
              launches=counts[K.PREACT], **int8["preact"]),
+        # Phase 20's kernels: launches over its six trunk chunks (each
+        # counted against its plan), clip_launches in the bench config
+        # with int8_root="u8"; the stem's times are the u8 stem's.
+        dict(name=int8_root_cuda.ROOT, source=csrc + "int8_root.cu",
+             replaces="human_dynamics_tpu/models/resnet_int8.py:371",
+             **ir["root"]),
+        dict(name=int8_root_cuda.POOL, source=csrc + "int8_root.cu",
+             replaces="human_dynamics_tpu/models/resnet_int8.py:459",
+             **ir["pool"]),
+        dict(name="resnet_int8_conv_stream", source=csrc + "resnet_int8.cu",
+             replaces="human_dynamics_tpu/models/resnet_int8.py:633",
+             **ir["stream"]),
+        dict(name="resnet_int8_preact_s8", source=csrc + "resnet_int8.cu",
+             replaces="human_dynamics_tpu/models/resnet_int8.py:565",
+             **ir["preact_s8"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4534,7 +4947,8 @@ def main():
                   "gauntlet_train_plain_ms", "gauntlet_train_bound_ms",
                   "gauntlet_eval_n", "gauntlet_eval_ms",
                   "gauntlet_eval_plain_ms", "gauntlet_eval_bound_ms",
-                  "byte_floor_ms", "conv_chain_ms")
+                  "byte_floor_ms", "conv_chain_ms", "clip_launches",
+                  "s2d_ms", "wfold_ms", "mode2_ms")
     print(json.dumps({"kernels": [
         {k: dict(kern, route="cuda")[k] for k in keys
          + tuple(k for k in train_keys if k in kern)} for kern in kernels

@@ -3,10 +3,13 @@
 Counterpart of ``human_dynamics_tpu/infer/predictor.py``, inference only:
 
 - Image mode runs ResNet-50 once per frame, in chunks of ``encode_chunk``
-  frames; raw uint8 frames are normalised on the device as x*(2/255)-1.
+  frames; raw uint8 frames are normalised on the device as x*(2/255)-1,
+  except with ``int8_root="u8"``, whose stem reads the bytes.
   The encoder is fp32, bf16 (``bf16_encoder``) or int8
   (``int8_encoder``, models/resnet_int8: static scales when
-  ``int8_calibration`` frames are given, else dynamic ones).
+  ``int8_calibration`` frames are given, else dynamic ones; with static
+  scales, ``int8_root`` and ``int8_stream`` pick the int8 stem and the
+  blocks whose residual stream is int8).
 - The per-frame features are zero-padded by the window schedule and cut
   into windows of T frames, B windows per group, ``groups_per_step``
   groups per model call; ``bf16_temporal`` runs that model (temporal
@@ -98,6 +101,13 @@ class HmmrPredictor:
         int8_calibration: frames (uint8, or [-1, 1] floats) to calibrate
             static activation scales on; without them the int8 encoder
             uses dynamic scales and warns.
+        int8_root: the static int8 encoder's stem: False (bf16 root conv),
+            True (int8 space-to-depth stem), "wfold" (int8 width-folded
+            stem) or "u8" (the width-folded stem on the frames' bytes:
+            uint8 frames skip the normalisation). Needs calibration.
+        int8_stream: False, True or a tuple of blocks (1-4) whose residual
+            stream the static int8 encoder carries as int8. Needs
+            calibration.
         bf16_temporal: run the window model (temporal encoder, IEF heads,
             hallucinator) in bf16, from a bf16 copy made once; omegas are
             cast to f32 before the SMPL decode.
@@ -120,6 +130,8 @@ class HmmrPredictor:
         bf16_encoder: bool = False,
         int8_encoder: bool = False,
         int8_calibration=None,
+        int8_root=False,
+        int8_stream=False,
         bf16_temporal: bool = False,
         groups_per_step: int = 8,
         encode_chunk: int = 120,
@@ -134,6 +146,11 @@ class HmmrPredictor:
             )
         if groups_per_step < 1 or encode_chunk < 1:
             raise ValueError("groups_per_step and encode_chunk must be >= 1")
+        if (int8_root or int8_stream) and int8_calibration is None:
+            raise ValueError(
+                "int8_root/int8_stream need int8_calibration (static "
+                "scales calibrate the stream/root requantization)"
+            )
         if state is not None:
             model.load_state_dict(state)
         self.device = resolve_device(device)
@@ -142,6 +159,8 @@ class HmmrPredictor:
         self.pred_mode = pred_mode
         self.use_fused_smpl = use_fused_smpl
         self.int8_encoder = int8_encoder
+        self.int8_root = int8_root
+        self.int8_stream = int8_stream
         self.bf16_encoder = bf16_encoder and not int8_encoder
         self.bf16_temporal = bf16_temporal
         self.groups_per_step = groups_per_step
@@ -174,6 +193,7 @@ class HmmrPredictor:
             )
         self._encoder = None if int8_encoder else resnet
         self._int8_plan = self._int8_qp = self._int8_wt = None
+        self.int8_scales = None
         if resnet is not None and int8_encoder:
             self._init_int8(resnet, int8_calibration)
         elif resnet is not None and self.bf16_encoder:
@@ -204,17 +224,23 @@ class HmmrPredictor:
     def set_int8_params(self, qp, scales=None):
         """Run the int8 encoder on these quantised weights (the port's
         ``prepare_int8_params`` keys, e.g. from ``utils.weights.load_jax_int8``)
-        with static ``scales``, or dynamic scales when None."""
+        with static ``scales`` (and the predictor's ``int8_root`` and
+        ``int8_stream``), or dynamic scales when None."""
         if not self.int8_encoder:
             raise ValueError("set_int8_params needs int8_encoder=True")
+        if scales is None and (self.int8_root or self.int8_stream):
+            raise ValueError("int8_root/int8_stream need static scales")
         qp = {k: v.to(self.device) for k, v in qp.items()}
         if scales is None:
-            self._int8_plan = None
+            self.int8_scales = self._int8_plan = None
             self._int8_qp, self._int8_wt = qp, kmajor_weights(qp)
         else:
             scales = {k: v.to(self.device) for k, v in scales.items()}
+            self.int8_scales = scales
             self._int8_qp = self._int8_wt = None
-            self._int8_plan = prepare_int8_static(qp, scales)
+            self._int8_plan = prepare_int8_static(
+                qp, scales, int8_stream=self.int8_stream,
+                int8_root=self.int8_root)
 
     # ------------------------------------------------------------------
     # Feature extraction (image mode)
@@ -241,6 +267,10 @@ class HmmrPredictor:
         ``pad_to``, as the JAX predictor pads its calls.
         """
         if self._int8_plan is not None:
+            if self.int8_root == "u8":
+                # The byte-direct stem reads uint8 frames as they are, and
+                # snaps float frames back to the 255-grid itself.
+                return run_int8_static(self._int8_plan, chunk)
             return run_int8_static(self._int8_plan, self._normalise(chunk))
         if self._int8_qp is not None:
             m = chunk.shape[0]

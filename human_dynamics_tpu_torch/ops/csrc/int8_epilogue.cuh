@@ -1,9 +1,19 @@
 // The int8 epilogue arithmetic shared by resnet_int8.cu (the conv's
-// requant and fused pre-activation) and k2_unit.cu (K2): saturating
-// round-to-int8, the branch-free exact division of the pre-activation's
-// mode 1, and the pre-activation quantiser itself. Every multiply and add
-// names its rounding (__fmul_rn, __fadd_rn, __fmaf_rn), so nvcc's
-// contraction cannot change which operations are fused.
+// requant and fused pre-activation), k2_unit.cu (K2) and int8_root.cu (the
+// int8 max pool's fused pre-activation): saturating round-to-int8, the
+// branch-free exact division of the pre-activation's modes 1 and 3, and the
+// pre-activation quantiser itself. Every multiply and add names its rounding
+// (__fmul_rn, __fadd_rn, __fmaf_rn), so nvcc's contraction cannot change
+// which operations are fused.
+//
+// Pre-activation modes (keep in step with resnet_int8_cuda.py's Preact):
+//   0 K2's, from the bf16 stream:      clip(rint(max(fma(v, a, b), 0)), 0, 127)
+//   1 the XLA path's, from the bf16 stream: clip(rint(p / s), 0, 127),
+//     p = max(bf16(bf16(v * a) + b), 0)
+//   2 from the int8 stream (int8_stream): mode 0's arithmetic on the int8
+//     value q, a = s_stream * A / s_p, b = B / s_p
+//   3 at an int8 -> bf16 block boundary: mode 1's arithmetic on the value
+//     the boundary's dequantisation makes, bf16(q * ds), ds = bf16(s_stream)
 
 #pragma once
 
@@ -67,11 +77,29 @@ __device__ __forceinline__ float2 preact_p2(const float (&v)[8],
   return make_float2(fmaxf(u.x, 0.f), fmaxf(u.y, 0.f));
 }
 
-// Pre-activation + quantisation of 8 bf16 values v (held as f32), packed
-// as 8 int8:
-//   mode 0 (K2, _unit_body): clip(rint(max(fma(v, a, b), 0)), 0, 127)
-//   mode 1 (XLA static path): clip(rint(p / s), 0, 127), p as preact_p2,
-//          with a and b bf16 values held as f32 and y = div_recip(s)
+// Whether a mode divides by the scale s (modes 1 and 3).
+__device__ __forceinline__ bool preact_divides(int mode) { return mode & 1; }
+
+// The value of int8 q (held as f32) that a mode-2 or mode-3 pre-activation
+// quantises: q itself, or bf16(q * ds) for mode 3 (exact product: 8 bits by
+// 8, one bf16 rounding, as XLA's bf16 multiply).
+__device__ __forceinline__ float preact_in_s8(float q, float ds, int mode) {
+  return mode == 3 ? __bfloat162float(__float2bfloat16_rn(__fmul_rn(q, ds)))
+                   : q;
+}
+
+// The integer value of a sat_s8 result, as f32 (exact: the magic number's
+// subtraction).
+__device__ __forceinline__ float s8_value(uint32_t q) {
+  return __fsub_rn(__uint_as_float(q), 12582912.f);
+}
+
+// Pre-activation + quantisation of 8 values v (held as f32: bf16 values
+// for modes 0 and 1, the preact_in_s8 values for modes 2 and 3), packed as
+// 8 int8:
+//   modes 0 and 2: clip(rint(max(fma(v, a, b), 0)), 0, 127)
+//   modes 1 and 3: clip(rint(p / s), 0, 127), p as preact_p2, with a and b
+//          bf16 values held as f32 and y = div_recip(s)
 // The mode and y branches stay outside the per-channel work, so that a
 // caller's loop over rows can hoist them.
 __device__ __forceinline__ uint2 preact_q8(const float (&v)[8],
@@ -79,7 +107,7 @@ __device__ __forceinline__ uint2 preact_q8(const float (&v)[8],
                                            const float (&pb)[8], float s,
                                            float y, int mode) {
   uint32_t q[8];
-  if (mode == 0) {
+  if (!preact_divides(mode)) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       q[j] = sat_s8(fmaxf(__fmaf_rn(v[j], pa[j], pb[j]), 0.f), 0.f);
@@ -106,7 +134,7 @@ __device__ __forceinline__ uint2 preact_q8(const float (&v)[8],
 __device__ __forceinline__ uint2 preact_q2(float v0, float v1, float a0,
                                            float a1, float b0, float b1,
                                            float s, float y, int mode) {
-  if (mode == 0)
+  if (!preact_divides(mode))
     return make_uint2(sat_s8(fmaxf(__fmaf_rn(v0, a0, b0), 0.f), 0.f),
                       sat_s8(fmaxf(__fmaf_rn(v1, a1, b1), 0.f), 0.f));
   const float2 t = bf16_round2(__fmul_rn(v0, a0), __fmul_rn(v1, a1));

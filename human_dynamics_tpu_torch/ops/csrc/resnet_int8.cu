@@ -1,14 +1,20 @@
 // int8 ResNet-50 v2 kernels for Hopper (sm_90a): an implicit-GEMM int8
 // convolution on warpgroup MMAs with per-output-channel epilogues (and,
 // optionally, the next unit's pre-activation quantiser fused into them), and
-// the standalone pre-activation + quantisation pass.
+// the standalone pre-activation + quantisation pass, from the bf16 residual
+// stream or from the int8 one (int8_stream).
 //
 // Replaces, together with the wrapper human_dynamics_tpu_torch/ops/resnet_int8_cuda.py,
 // the XLA integer convolutions of human_dynamics_tpu/models/resnet_int8.py
 // (_conv_s8, requant, dequant) and its preact + quant, for the units K2
-// (k2_unit.cu) does not take, with the epilogue multiply-adds done as a
-// separate multiply and add; the requant also takes K2's fused multiply-add
-// (FLAG_FMA), so that the int8 conv can compose a K2 unit.
+// (k2_unit.cu) does not take. The requant and dequant epilogues' multiply-add
+// is fused (FLAG_FMA: XLA contracts it on the CPU, and K2 fuses it) or a
+// separate multiply and add. The int8 residual
+// stream's conv3 epilogue (resnet_int8.py:633-650, the "stream" epilogue)
+// and its pre-activations (:565-576, modes 2 and 3 of int8_epilogue.cuh)
+// follow XLA's contractions on the CPU: res = fma(y, m, a), then
+// fma(q, k, res) for an int8 identity shortcut q (k = sc_s / s_out) or
+// res + sc / s_out for a bf16 projection shortcut sc.
 //
 // conv: out[m, co] = epilogue(sum_k A[m, k] * Wt[co, k]), int32 accumulation.
 //   A is the implicit im2col view of x (N, H, W, Cin) int8 NHWC: row m is an
@@ -43,7 +49,11 @@
 //   the main loop starts), and stores whole lines.
 // - Fused pre-activation: the dequant-with-residual and residual epilogues
 //   can also write the next unit's int8 pre-activation from the bf16 value
-//   they store (1 extra byte per element instead of a pass of 3).
+//   they store (1 extra byte per element instead of a pass of 3); the
+//   stream epilogue from the int8 value it stores (modes 2 and 3).
+// - Stream epilogue: its int8 identity shortcut may be read strided (the
+//   stride-2 last unit of blocks 1-3 reads x[:, ::2, ::2]) by index
+//   arithmetic, so no subsampled copy is made.
 //
 // Rounding: int32 -> f32 by __int2float_rn, f32 -> int8 half to even as
 // rintf and jnp.round (by a magic-number add, see sat_s8), f32 -> bf16 by
@@ -68,13 +78,15 @@ using namespace int8_epilogue;
 // Epilogues (keep in step with resnet_int8_cuda.py).
 constexpr int kEpiInt32 = 0;     // int32 accumulators
 constexpr int kEpiRequant = 1;   // int8 clip(rint(y*m + a), lo, 127)
-constexpr int kEpiDequant = 2;   // bf16(y*m + a) [relu] [+ bf16 residual]
+constexpr int kEpiDequant = 2;   // bf16(y*m + a or fma) [relu] [+ bf16 residual]
 constexpr int kEpiDequantF32 = 3;  // f32 fma(y, m, a)
 constexpr int kEpiResidual = 4;  // bf16(fma(y, m, shortcut) + a)
+constexpr int kEpiStream = 5;    // int8 clip(rint(fma(y, m, a) + shortcut term))
 
-constexpr int kFlagFma = 1;      // requant: fma(y, m, a) instead of y*m + a
+constexpr int kFlagFma = 1;      // requant, dequant: fma(y, m, a), not y*m + a
 constexpr int kFlagRelu = 2;     // requant: lo = 0; dequant: max(., 0)
 constexpr int kFlagResBf16 = 4;  // residual / shortcut operand is bf16 (else f32)
+constexpr int kFlagResS8 = 8;    // stream: int8 shortcut times *rsc (else bf16 / *rsc)
 
 // Main-loop paths.
 constexpr int kPathTma = 0;      // 1x1 stride 1: A and B by TMA
@@ -100,10 +112,27 @@ struct ConvParams {
   const float* pa;
   const float* pb;
   const float* ps;
+  const float* pds;     // mode 3's dequantisation scale
+  const float* rsc;     // stream: the shortcut's multiplier or divisor
   int pmode;
   int n, h, w, cin, cout, ks, stride, pad, ho, wo, k, m;
   int epi, flags;
+  int rh, rw, rstride;  // stream: the int8 shortcut's map and its stride
 };
+
+// Element offset of the residual row of output row m: row m itself, or for
+// the stream epilogue's strided int8 shortcut the pixel (n, oy * rstride,
+// ox * rstride) of its (rh, rw) map.
+__device__ __forceinline__ size_t res_offset(const ConvParams& p, int m) {
+  if (p.rstride == 1 && p.rh == p.ho && p.rw == p.wo) return (size_t)m * p.cout;
+  const int hw = p.ho * p.wo;
+  const int nb = m / hw;
+  const int r = m - nb * hw;
+  const int oy = r / p.wo;
+  const int ox = r - oy * p.wo;
+  return (((size_t)nb * p.rh + (size_t)oy * p.rstride) * p.rw +
+          (size_t)ox * p.rstride) * p.cout;
+}
 
 template <int BN, int BK>
 struct Tile {
@@ -156,6 +185,7 @@ __device__ __forceinline__ void epilogue_bf16(const ConvParams& p,
   const int cl = (tid % kCh) * C, c = n0 + cl, r0 = tid / kCh;
   if (c >= p.cout) return;
   const bool dequant = p.epi == kEpiDequant;
+  const bool fused = p.flags & kFlagFma;
   const bool relu = p.flags & kFlagRelu;
   const bool has_res = p.res != nullptr;
   uint4 raw[kIt][kResF32 ? 2 : 1] = {};
@@ -182,7 +212,7 @@ __device__ __forceinline__ void epilogue_bf16(const ConvParams& p,
   if (p.pq != nullptr) {
     load_cols<C>(p.pa, c, C, pa);
     load_cols<C>(p.pb, c, C, pb);
-    if (p.pmode == 1) {
+    if (preact_divides(p.pmode)) {
       ps = __ldg(p.ps);
       py = div_recip(ps);
     }
@@ -214,7 +244,8 @@ __device__ __forceinline__ void epilogue_bf16(const ConvParams& p,
     for (int j = 0; j < C; ++j) {
       const float y = __int2float_rn(acc[j]);
       if (dequant) {
-        v[j] = __fadd_rn(__fmul_rn(y, mv[j]), av[j]);
+        v[j] = fused ? __fmaf_rn(y, mv[j], av[j])
+                     : __fadd_rn(__fmul_rn(y, mv[j]), av[j]);
       } else {
         v[j] = __fadd_rn(__fmaf_rn(y, mv[j], res[j]), av[j]);
       }
@@ -250,6 +281,93 @@ __device__ __forceinline__ void epilogue_bf16(const ConvParams& p,
       }
       *reinterpret_cast<uint2*>(p.pq + o) = preact_q8(stored, pa, pb, ps, py,
                                                      p.pmode);
+    }
+  }
+}
+
+// The stream epilogue of one tile (int8_stream's conv3), 8 channels a
+// thread: res = fma(y, m, a), then + the shortcut term, fma(q, rsc, res) for
+// an int8 shortcut q or res + sc / rsc (correctly rounded) for a bf16 one,
+// then int8 clip(rint(res), -127, 127); with pq, the next unit's
+// pre-activation (mode 2 or 3) of the int8 value stored. Every shortcut row
+// this thread needs is loaded before the first is used.
+template <int BN>
+__device__ __forceinline__ void epilogue_stream(const ConvParams& p,
+                                                const int* stg, int m0,
+                                                int n0) {
+  constexpr int C = 8, kCh = BN / C, kStep = kThreads / kCh;
+  constexpr int kIt = kBM / kStep, kLd = BN + kStgPad;
+  const int tid = threadIdx.x;
+  const int cl = (tid % kCh) * C, c = n0 + cl, r0 = tid / kCh;
+  if (c >= p.cout) return;
+  const bool s8 = p.flags & kFlagResS8;
+  uint4 raw[kIt];
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    raw[i] = make_uint4(0, 0, 0, 0);
+    const int m = m0 + r0 + i * kStep;
+    if (m < p.m) {
+      const size_t o = res_offset(p, m) + c;
+      if (s8) {
+        const uint2 v =
+            *reinterpret_cast<const uint2*>(static_cast<const int8_t*>(p.res) + o);
+        raw[i].x = v.x;
+        raw[i].y = v.y;
+      } else {
+        raw[i] = *reinterpret_cast<const uint4*>(
+            static_cast<const __nv_bfloat16*>(p.res) + o);
+      }
+    }
+  }
+  float mv[C], av[C], pa[C], pb[C];
+  load_cols<C>(p.mul, c, C, mv);
+  load_cols<C>(p.add, c, C, av);
+  const float rs = __ldg(p.rsc);
+  float ps = 1.f, py = 1.f, ds = 1.f;
+  if (p.pq != nullptr) {
+    load_cols<C>(p.pa, c, C, pa);
+    load_cols<C>(p.pb, c, C, pb);
+    if (preact_divides(p.pmode)) {
+      ps = __ldg(p.ps);
+      py = div_recip(ps);
+    }
+    if (p.pmode == 3) ds = __ldg(p.pds);
+  }
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    const int r = r0 + i * kStep;
+    if (m0 + r >= p.m) break;
+    const size_t o = (size_t)(m0 + r) * p.cout + c;
+    int acc[C];
+    load_ints<C>(stg + r * kLd + cl, acc);
+    float sc[C];
+    if (s8) {
+      const int8_t* rb = reinterpret_cast<const int8_t*>(&raw[i]);
+#pragma unroll
+      for (int j = 0; j < C; ++j) sc[j] = __int2float_rn(rb[j]);
+    } else {
+      const __nv_bfloat162* rb = reinterpret_cast<const __nv_bfloat162*>(&raw[i]);
+#pragma unroll
+      for (int j = 0; j < C / 2; ++j) {
+        const float2 f = __bfloat1622float2(rb[j]);
+        sc[2 * j] = f.x;
+        sc[2 * j + 1] = f.y;
+      }
+    }
+    uint32_t q[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const float v = __fmaf_rn(__int2float_rn(acc[j]), mv[j], av[j]);
+      q[j] = sat_s8(s8 ? __fmaf_rn(sc[j], rs, v)
+                       : __fadd_rn(v, __fdiv_rn(sc[j], rs)), -127.f);
+    }
+    *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) =
+        make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
+    if (p.pq != nullptr) {
+      float v[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) v[j] = preact_in_s8(s8_value(q[j]), ds, p.pmode);
+      *reinterpret_cast<uint2*>(p.pq + o) = preact_q8(v, pa, pb, ps, py, p.pmode);
     }
   }
 }
@@ -340,6 +458,9 @@ __device__ __forceinline__ void epilogue(const ConvParams& p, const int* stg,
       } else {
         epilogue_bf16<BN, true>(p, stg, m0, n0);
       }
+      return;
+    case kEpiStream:
+      epilogue_stream<BN>(p, stg, m0, n0);
       return;
   }
 }
@@ -441,9 +562,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   // The epilogue's residual rows, fetched into L2 while the main loop runs.
   if (p.res != nullptr && tid < kBM && m0 + tid < p.m) {
-    const int esize = (p.epi == kEpiResidual && !(p.flags & kFlagResBf16)) ? 4 : 2;
+    const int esize =
+        (p.epi == kEpiStream && (p.flags & kFlagResS8)) ? 1
+        : (p.epi == kEpiResidual && !(p.flags & kFlagResBf16)) ? 4 : 2;
     prefetch_l2(static_cast<const uint8_t*>(p.res) +
-                    ((size_t)(m0 + tid) * p.cout + n0) * esize,
+                    (res_offset(p, m0 + tid) + n0) * esize,
                 min(BN, p.cout - n0) * esize);
   }
   for (int kt = 0; kt < k_tiles; ++kt) {
@@ -506,17 +629,21 @@ __global__ void __launch_bounds__(kThreads, 2)
   epilogue<BN>(p, stg, m0, n0);
 }
 
-// Pre-activation + quantisation, bf16 in, int8 out: thread (x, y) of a
-// block takes channel group x (8 channels: its pa / pb as two 16-byte loads
-// each, once) of every (gridDim.x * blockDim.y)-th row.
+// Pre-activation + quantisation, bf16 in (modes 0 and 1) or int8 in (modes
+// 2 and 3), int8 out: thread (x, y) of a block takes channel group x (8
+// channels: its pa / pb as two 16-byte loads each, once) of every
+// (gridDim.x * blockDim.y)-th row.
+template <typename In>
 __global__ void __launch_bounds__(256)
-    preact_quant_kernel(const __nv_bfloat16* __restrict__ x,
-                        int8_t* __restrict__ out, const float* __restrict__ pa,
+    preact_quant_kernel(const In* __restrict__ x, int8_t* __restrict__ out,
+                        const float* __restrict__ pa,
                         const float* __restrict__ pb,
-                        const float* __restrict__ s, long long rows, int c,
+                        const float* __restrict__ s,
+                        const float* __restrict__ ds, long long rows, int c,
                         int mode) {
-  const float sv = mode == 1 ? __ldg(s) : 1.f;
+  const float sv = preact_divides(mode) ? __ldg(s) : 1.f;
   const float yv = div_recip(sv);
+  const float dv = mode == 3 ? __ldg(ds) : 1.f;
   for (int g = threadIdx.x; g * 8 < c; g += blockDim.x) {
     float a[8], b[8];
     const float4* pa4 = reinterpret_cast<const float4*>(pa + g * 8);
@@ -528,11 +655,19 @@ __global__ void __launch_bounds__(256)
     for (long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
          r < rows; r += (long long)gridDim.x * blockDim.y) {
       const size_t o = (size_t)r * c + g * 8;
-      const uint4 raw = *reinterpret_cast<const uint4*>(x + o);
-      const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
       float v[8];
+      if constexpr (sizeof(In) == 1) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(x + o);
+        const int8_t* xv = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(xv[j]);
+        for (int j = 0; j < 8; ++j)
+          v[j] = preact_in_s8(__int2float_rn(xv[j]), dv, mode);
+      } else {
+        const uint4 raw = *reinterpret_cast<const uint4*>(x + o);
+        const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(xv[j]);
+      }
       *reinterpret_cast<uint2*>(out + o) = preact_q8(v, a, b, sv, yv, mode);
     }
   }
@@ -616,18 +751,22 @@ extern "C" {
 // Launches the conv on `stream`; returns 0, a cudaError_t, or one of the
 // kErr codes. x (n, h, w, cin) int8, wt (cout, ks*ks*cin) int8, out
 // (n, ho, wo, cout) of the epilogue's type; mul/add (cout,) f32 (unused for
-// kEpiInt32); res (n, ho, wo, cout) bf16 or f32, or null; pq (n, ho, wo,
-// cout) int8 or null, with pa/pb (cout,) f32 and ps (1,) f32 for pmode 1.
-// path / bn / bk come from the wrapper's conv_plan. The wrapper checks
-// shapes, alignment (cin % 16 == 0, cout % 8 == 0, 16-byte aligned tensors)
-// and devices.
+// kEpiInt32); res (n, ho, wo, cout) bf16 or f32, or null; for kEpiStream
+// res is int8 (n, rh, rw, cout), read at stride rstride, with rsc (1,) f32
+// its multiplier (kFlagResS8), or bf16 (n, ho, wo, cout) with rsc its
+// divisor; pq (n, ho, wo, cout) int8 or null, with pa/pb (cout,) f32, ps
+// (1,) f32 for pmode 1 and 3, pds (1,) f32 for pmode 3. path / bn / bk come
+// from the wrapper's conv_plan. The wrapper checks shapes, alignment (cin %
+// 16 == 0, cout % 8 == 0, 16-byte aligned tensors) and devices.
 int resnet_int8_conv_launch(const void* x, const void* wt, void* out,
                             const float* mul, const float* add,
                             const void* res, void* pq, const float* pa,
-                            const float* pb, const float* ps, int pmode,
+                            const float* pb, const float* ps,
+                            const float* pds, const float* rsc, int pmode,
                             int n, int h, int w, int cin, int cout, int ks,
                             int stride, int ho, int wo, int epi, int flags,
-                            int path, int bn, int bk, void* stream) {
+                            int path, int bn, int bk, int rh, int rw,
+                            int rstride, void* stream) {
   ConvParams p;
   p.x = static_cast<const int8_t*>(x);
   p.wt = static_cast<const int8_t*>(wt);
@@ -639,7 +778,10 @@ int resnet_int8_conv_launch(const void* x, const void* wt, void* out,
   p.pa = pa;
   p.pb = pb;
   p.ps = ps;
+  p.pds = pds;
+  p.rsc = rsc;
   p.pmode = pmode;
+  p.rh = rh; p.rw = rw; p.rstride = rstride;
   p.n = n; p.h = h; p.w = w; p.cin = cin; p.cout = cout; p.ks = ks;
   p.stride = stride; p.pad = (ks - 1) / 2; p.ho = ho; p.wo = wo;
   p.k = ks * ks * cin;
@@ -656,21 +798,31 @@ int resnet_int8_conv_launch(const void* x, const void* wt, void* out,
   return kErrTile;
 }
 
-// x (rows, c) bf16 with channels innermost, c % 8 == 0; out (rows, c) int8;
-// pa / pb 16-byte aligned.
+// x (rows, c) with channels innermost, bf16 for modes 0 and 1, int8 for
+// modes 2 and 3, c % 8 == 0; out (rows, c) int8; pa / pb 16-byte aligned;
+// s (1,) f32 for modes 1 and 3, ds (1,) f32 for mode 3.
 int resnet_int8_preact_launch(const void* x, void* out, const float* pa,
                               const float* pb, const float* s,
-                              long long rows, int c, int mode, void* stream) {
+                              const float* ds, long long rows, int c,
+                              int mode, void* stream) {
   if (rows <= 0 || c <= 0) return (int)cudaSuccess;
+  if (mode < 0 || mode > 3) return kErrTile;
   const int groups = c / 8;
   const int bx = groups < 256 ? groups : 256;
   const int by = 256 / bx;
   long long blocks = (rows + by - 1) / by;
   if (blocks > 132 * 16) blocks = 132 * 16;  // each thread then loops over rows
-  preact_quant_kernel<<<(unsigned)blocks, dim3(bx, by), 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(out), pa, pb,
-      s, rows, c, mode);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode >= 2) {
+    preact_quant_kernel<int8_t><<<(unsigned)blocks, dim3(bx, by), 0, st>>>(
+        static_cast<const int8_t*>(x), static_cast<int8_t*>(out), pa, pb, s,
+        ds, rows, c, mode);
+  } else {
+    preact_quant_kernel<__nv_bfloat16><<<(unsigned)blocks, dim3(bx, by), 0,
+                                         st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(out), pa,
+        pb, s, ds, rows, c, mode);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -678,7 +830,7 @@ const char* resnet_int8_error_string(int code) {
   switch (code) {
     case kErrNoEncoder: return "cuTensorMapEncodeTiled not found in the driver";
     case kErrTensorMap: return "cuTensorMapEncodeTiled refused the tensor map";
-    case kErrTile: return "no kernel for this path and tile";
+    case kErrTile: return "no kernel for this path, tile or mode";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }
@@ -692,11 +844,13 @@ int resnet_int8_layout(int which) {
     case 2: return kEpiDequant;
     case 3: return kEpiDequantF32;
     case 4: return kEpiResidual;
-    case 5: return kFlagFma;
-    case 6: return kFlagRelu;
-    case 7: return kFlagResBf16;
-    case 8: return kPathTma;
-    case 9: return kPathGather;
+    case 5: return kEpiStream;
+    case 6: return kFlagFma;
+    case 7: return kFlagRelu;
+    case 8: return kFlagResBf16;
+    case 9: return kFlagResS8;
+    case 10: return kPathTma;
+    case 11: return kPathGather;
     default: return -100;
   }
 }

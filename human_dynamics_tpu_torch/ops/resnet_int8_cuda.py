@@ -3,18 +3,22 @@ and K2, the chained int8 bottleneck block, with their plain versions.
 
 Counterpart of ``human_dynamics_tpu/ops/resnet_int8_pallas.py`` (K2) and of
 the XLA integer convolutions of ``human_dynamics_tpu/models/resnet_int8.py``
-(``_conv_s8`` with its requant / dequant epilogues). The CUDA sources are
-``csrc/resnet_int8.cu`` (the conv and the pre-activation) and
-``csrc/k2_unit.cu`` (K2):
+(``_conv_s8`` with its requant / dequant epilogues, and the int8 residual
+stream's fused add + requant and pre-activation, ``int8_stream``). The CUDA
+sources are ``csrc/resnet_int8.cu`` (the conv and the pre-activation) and
+``csrc/k2_unit.cu`` (K2); the int8 root stems and the int8 max pool are in
+``ops/int8_root_cuda.py``:
 
 - ``conv_s8``: NHWC int8 x (Cout, K) int8 weights -> int32 accumulators,
-  with a per-output-channel f32 epilogue fused in (see ``EPILOGUES``) and,
-  optionally, the next unit's pre-activation quantiser (``Preact``) on the
-  bf16 value it stores. ``conv_plan`` picks the kernel's path and tile
-  from the geometry: TMA-fed ``wgmma`` for 1x1 stride-1 convs, a
-  cp.async gather feeding the same ``wgmma`` loop for the rest.
-- ``preact_quant``: bf16 residual stream -> folded BN + ReLU -> int8; the
-  standalone pass, for a unit whose input no conv produced.
+  with a per-output-channel f32 epilogue fused in (see ``EPILOGUES``; the
+  "stream" epilogue adds an int8 or bf16 shortcut and requantises to the
+  int8 stream) and, optionally, the next unit's pre-activation quantiser
+  (``Preact``) on the value it stores. ``conv_plan`` picks the kernel's
+  path and tile from the geometry: TMA-fed ``wgmma`` for 1x1 stride-1
+  convs, a cp.async gather feeding the same ``wgmma`` loop for the rest.
+- ``preact_quant``: bf16 or int8 residual stream -> folded BN + ReLU ->
+  int8; the standalone pass, for a unit whose input no conv produced
+  (``Preact`` lists the four modes).
 - ``fused_block``: K2, a chain of stride-1 pre-activation bottleneck units
   with static scales, one launch of ``csrc/k2_unit.cu`` per unit (the
   pre-activation, both requantised convs and the residual conv in one
@@ -26,9 +30,10 @@ operand (``hwio_to_kmajor``), which is what the tensor-core fragments read.
 
 Contraction: the JAX K2 kernel's four multiply-adds (preact, both
 requants, the shortcut dequant, the residual) are fused multiply-adds, as
-XLA contracts them inside the kernel; the XLA path's epilogues are a
-separate multiply and add. The CUDA source names every rounding, and the
-plain versions emulate a fused multiply-add through float64.
+XLA contracts them inside the kernel; XLA contracts the static path's
+requant and dequant epilogues on the CPU too (``fma=True``). The CUDA
+source names every rounding, and the plain versions emulate a fused
+multiply-add through float64.
 
 Which version runs is decided by the device of the tensors: CUDA tensors
 launch the kernels, CPU tensors run the plain versions. A failed build or
@@ -58,27 +63,44 @@ LAUNCHES = {CONV: 0, PREACT: 0, BLOCK: 0}
 
 # Epilogue, flag and path codes of csrc/resnet_int8.cu.
 EPILOGUES = {"int32": 0, "requant": 1, "dequant": 2, "dequant_f32": 3,
-             "residual": 4}
-FLAG_FMA, FLAG_RELU, FLAG_RES_BF16 = 1, 2, 4
+             "residual": 4, "stream": 5}
+FLAG_FMA, FLAG_RELU, FLAG_RES_BF16, FLAG_RES_S8 = 1, 2, 4, 8
 PATHS = {"tma": 0, "gather": 1}
-# Conv launches by main-loop path, whatever LAUNCHES counter they count under.
+# Conv launches by main-loop path and by epilogue, and pre-activations
+# computed by mode (standalone, or fused into a conv, K2 or the int8 pool),
+# whatever LAUNCHES counter they count under.
 PATH_LAUNCHES = {path: 0 for path in PATHS}
+EPILOGUE_LAUNCHES = {epi: 0 for epi in EPILOGUES}
+PREACT_MODES = (0, 1, 2, 3)
+PREACT_MODE_LAUNCHES = {mode: 0 for mode in PREACT_MODES}
 _OUT_DTYPE = {"int32": torch.int32, "requant": torch.int8,
               "dequant": torch.bfloat16, "dequant_f32": torch.float32,
-              "residual": torch.bfloat16}
+              "residual": torch.bfloat16, "stream": torch.int8}
 # The epilogues that store the bf16 residual stream, and so can quantise
-# the next unit's pre-activation from it.
-_PREACT_EPILOGUES = ("dequant", "residual")
+# the next unit's pre-activation from it (modes 0 and 1), and the one that
+# stores the int8 stream (modes 2 and 3).
+_PREACT_EPILOGUES = {"dequant": (0, 1), "residual": (0, 1), "stream": (2, 3)}
 
 
 class Preact(NamedTuple):
     """A unit's pre-activation quantiser operands (see ``preact_quant``):
-    pa, pb (C,) float32; s the (1,) float32 scale of mode 1, else None."""
+    pa, pb (C,) float32; s the (1,) float32 scale of modes 1 and 3, else
+    None; ds the (1,) float32 bf16 stream scale of mode 3, else None.
+
+    Modes: 0 K2's and 1 the XLA path's, from the bf16 stream; 2 from the
+    int8 stream (``int8_stream``); 3 at an int8 -> bf16 block boundary,
+    mode 1 on the boundary's dequantised value bf16(q * ds)."""
 
     pa: torch.Tensor
     pb: torch.Tensor
     s: Optional[torch.Tensor]
     mode: int
+    ds: Optional[torch.Tensor] = None
+
+
+def _count_preact(preact: Optional[Preact]):
+    if preact is not None:
+        PREACT_MODE_LAUNCHES[preact.mode] += 1
 
 
 class ConvPlan(NamedTuple):
@@ -173,17 +195,38 @@ def fma_reference(a, b, c):
 
 def epilogue_reference(acc, epilogue, mul=None, add=None, *, relu=False,
                        fma=False, residual=None,
+                       res_scale: Optional[torch.Tensor] = None,
+                       res_stride: int = 1,
                        preact: Optional[Preact] = None):
     """The conv epilogues of the CUDA source, in plain PyTorch. With
-    ``preact`` (a bf16 epilogue only) it returns (out, the next unit's
-    pre-activation of out)."""
-    out = _epilogue_out(acc, epilogue, mul, add, relu, fma, residual)
+    ``preact`` it returns (out, the next unit's pre-activation of out)."""
+    out = _epilogue_out(acc, epilogue, mul, add, relu, fma, residual,
+                        res_scale, res_stride)
     if preact is None:
         return out
-    return out, preact_quant_reference(out, *preact[:3], mode=preact.mode)
+    return out, preact_quant_reference(out, *preact[:3], mode=preact.mode,
+                                       ds=preact.ds)
 
 
-def _epilogue_out(acc, epilogue, mul, add, relu, fma, residual):
+def _stream_shortcut(residual, res_stride):
+    if res_stride == 1:
+        return residual
+    return residual[:, ::res_stride, ::res_stride, :]
+
+
+def _epilogue_out(acc, epilogue, mul, add, relu, fma, residual, res_scale,
+                  res_stride):
+    if epilogue == "stream":
+        # XLA's contractions on the CPU: fma(y, m, a), then fma(q, k, .)
+        # for an int8 shortcut, or + sc / s_out for a bf16 one.
+        v = fma_reference(acc.float(), mul, add)
+        sc = _stream_shortcut(residual, res_stride).float()
+        k = res_scale.reshape(())
+        if residual.dtype == torch.int8:
+            v = fma_reference(sc, k, v)
+        else:
+            v = v + sc / k
+        return torch.round(v).clamp(-127.0, 127.0).to(torch.int8)
     if epilogue == "int32":
         return acc
     y = acc.float()
@@ -191,7 +234,8 @@ def _epilogue_out(acc, epilogue, mul, add, relu, fma, residual):
         v = fma_reference(y, mul, add) if fma else y * mul + add
         return torch.round(v).clamp(0.0 if relu else -127.0, 127.0).to(torch.int8)
     if epilogue == "dequant":
-        v = (y * mul + add).to(torch.bfloat16)
+        v = (fma_reference(y, mul, add) if fma else y * mul + add).to(
+            torch.bfloat16)
         if relu:
             v = torch.clamp_min(v, 0)
         return v if residual is None else residual + v
@@ -202,7 +246,13 @@ def _epilogue_out(acc, epilogue, mul, add, relu, fma, residual):
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
-def _check_conv(xq, wt, stride, epilogue, mul, add, residual, preact=None):
+def _check_scalar(name, t):
+    if t is None or t.numel() != 1 or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be a (1,) float32 tensor")
+
+
+def _check_conv(xq, wt, stride, epilogue, mul, add, residual, preact=None,
+                res_scale=None, res_stride=1):
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
     ks, ho, wo = conv_geometry(xq, wt, stride)
@@ -213,24 +263,42 @@ def _check_conv(xq, wt, stride, epilogue, mul, add, residual, preact=None):
         for name, t in (("mul", mul), ("add", add)):
             if t is None or tuple(t.shape) != (cout,) or t.dtype != torch.float32:
                 raise ValueError(f"{name} must be ({cout},) float32")
-    needs_res = epilogue == "residual"
-    if needs_res and residual is None:
-        raise ValueError("the residual epilogue needs a residual")
+    if epilogue in ("residual", "stream") and residual is None:
+        raise ValueError(f"the {epilogue} epilogue needs a residual")
+    if epilogue == "stream":
+        _check_scalar("res_scale", res_scale)
+        if res_stride < 1 or (res_stride > 1
+                              and residual.dtype != torch.int8):
+            raise ValueError("only an int8 shortcut is read strided")
+    elif res_scale is not None or res_stride != 1:
+        raise ValueError(f"epilogue {epilogue!r} takes no res_scale or "
+                         f"res_stride")
     if residual is not None:
-        if epilogue not in ("dequant", "residual"):
+        if epilogue not in ("dequant", "residual", "stream"):
             raise ValueError(f"epilogue {epilogue!r} takes no residual")
         want = (xq.shape[0], ho, wo, cout)
-        if tuple(residual.shape) != want:
-            raise ValueError(f"residual shape {tuple(residual.shape)}, want {want}")
-        ok = (torch.bfloat16,) if epilogue == "dequant" else (
-            torch.bfloat16, torch.float32)
+        got = tuple(residual.shape)
+        if epilogue == "stream" and residual.dtype == torch.int8:
+            got = tuple(_stream_shortcut(residual, res_stride).shape)
+        if got != want:
+            raise ValueError(f"residual shape {tuple(residual.shape)} (read "
+                             f"at stride {res_stride}), want {want}")
+        ok = {"dequant": (torch.bfloat16,),
+              "residual": (torch.bfloat16, torch.float32),
+              "stream": (torch.int8, torch.bfloat16)}[epilogue]
         if residual.dtype not in ok:
             raise ValueError(f"residual dtype {residual.dtype}, want one of {ok}")
     if preact is not None:
         if epilogue not in _PREACT_EPILOGUES:
             raise ValueError(
-                f"epilogue {epilogue!r} stores no bf16 stream to quantise; "
-                f"a preact takes {_PREACT_EPILOGUES}")
+                f"epilogue {epilogue!r} stores no bf16 or int8 stream to "
+                f"quantise; a preact takes {sorted(_PREACT_EPILOGUES)}")
+        modes = _PREACT_EPILOGUES[epilogue]
+        if preact.mode not in modes:
+            stream = "int8" if epilogue == "stream" else "bf16"
+            raise ValueError(
+                f"epilogue {epilogue!r} stores the {stream} stream: a preact "
+                f"after it takes modes {modes}, not a mode-{preact.mode} one")
         _check_preact_operands(cout, *preact)
     return ks, ho, wo
 
@@ -260,17 +328,18 @@ def _kernel_library() -> ctypes.CDLL:
 
     lib = load_kernel_library(KERNEL_NAME).lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.resnet_int8_conv_launch.argtypes = [ptr] * 10 + [i32] * 15 + [ptr]
+    lib.resnet_int8_conv_launch.argtypes = [ptr] * 12 + [i32] * 18 + [ptr]
     lib.resnet_int8_conv_launch.restype = i32
     lib.resnet_int8_preact_launch.argtypes = (
-        [ptr] * 5 + [ctypes.c_longlong, i32, i32, ptr])
+        [ptr] * 6 + [ctypes.c_longlong, i32, i32, ptr])
     lib.resnet_int8_preact_launch.restype = i32
     lib.resnet_int8_error_string.argtypes = [i32]
     lib.resnet_int8_error_string.restype = ctypes.c_char_p
     lib.resnet_int8_layout.argtypes = [i32]
     lib.resnet_int8_layout.restype = i32
-    layout = tuple(lib.resnet_int8_layout(i) for i in range(10))
-    want = (tuple(EPILOGUES.values()) + (FLAG_FMA, FLAG_RELU, FLAG_RES_BF16)
+    layout = tuple(lib.resnet_int8_layout(i) for i in range(12))
+    want = (tuple(EPILOGUES.values())
+            + (FLAG_FMA, FLAG_RELU, FLAG_RES_BF16, FLAG_RES_S8)
             + tuple(PATHS.values()))
     if layout != want:
         raise RuntimeError(
@@ -303,13 +372,14 @@ def _check_cuda_layout(aligned, others=()):
 
 
 def _conv_cuda(counter, xq, wt, stride, epilogue, mul=None, add=None, *,
-               relu=False, fma=False, residual=None,
-               preact: Optional[Preact] = None):
+               relu=False, fma=False, residual=None, res_scale=None,
+               res_stride=1, preact: Optional[Preact] = None):
     """Launch the conv kernel on PyTorch's current stream, on the path
-    ``conv_plan`` picks; the launch counts under LAUNCHES[counter] and
-    PATH_LAUNCHES[path]. Returns out, or (out, pq) with ``preact``."""
+    ``conv_plan`` picks; the launch counts under LAUNCHES[counter],
+    PATH_LAUNCHES[path], EPILOGUE_LAUNCHES[epilogue] and, with ``preact``,
+    PREACT_MODE_LAUNCHES[mode]. Returns out, or (out, pq) with ``preact``."""
     ks, ho, wo = _check_conv(xq, wt, stride, epilogue, mul, add, residual,
-                             preact)
+                             preact, res_scale, res_stride)
     n, h, w, cin = xq.shape
     cout = wt.shape[0]
     plan = conv_plan(ks, stride, cin, cout)
@@ -319,23 +389,28 @@ def _conv_cuda(counter, xq, wt, stride, epilogue, mul=None, add=None, *,
           else torch.empty(shape, dtype=torch.int8, device=xq.device))
     pre = preact if preact is not None else Preact(None, None, None, 0)
     _check_cuda_layout(_operands(xq, wt, out, residual, pq),
-                       _operands(mul, add, pre.pa, pre.pb, pre.s))
+                       _operands(mul, add, pre.pa, pre.pb, pre.s, pre.ds,
+                                 res_scale))
+    res_dtype = None if residual is None else residual.dtype
     flags = ((FLAG_FMA if fma else 0) | (FLAG_RELU if relu else 0)
-             | (FLAG_RES_BF16 if residual is not None
-                and residual.dtype == torch.bfloat16 else 0))
+             | (FLAG_RES_BF16 if res_dtype == torch.bfloat16 else 0)
+             | (FLAG_RES_S8 if res_dtype == torch.int8 else 0))
+    rh, rw = (ho, wo) if residual is None else residual.shape[1:3]
     lib = _kernel_library()
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
         code = lib.resnet_int8_conv_launch(
             xq.data_ptr(), wt.data_ptr(), out.data_ptr(), _ptr(mul),
             _ptr(add), _ptr(residual), _ptr(pq), _ptr(pre.pa), _ptr(pre.pb),
-            _ptr(pre.s), pre.mode, n, h, w, cin, cout, ks, stride, ho, wo,
-            EPILOGUES[epilogue], flags, PATHS[plan.path], plan.bn, plan.bk,
-            stream,
+            _ptr(pre.s), _ptr(pre.ds), _ptr(res_scale), pre.mode, n, h, w,
+            cin, cout, ks, stride, ho, wo, EPILOGUES[epilogue], flags,
+            PATHS[plan.path], plan.bn, plan.bk, rh, rw, res_stride, stream,
         )
     _raise_on(code, CONV)
     LAUNCHES[counter] += 1
     PATH_LAUNCHES[plan.path] += 1
+    EPILOGUE_LAUNCHES[epilogue] += 1
+    _count_preact(preact)
     return out if preact is None else (out, pq)
 
 
@@ -344,6 +419,8 @@ def conv_s8(xq: torch.Tensor, wt: torch.Tensor, stride: int = 1, *,
             add: Optional[torch.Tensor] = None, relu: bool = False,
             fma: bool = False,
             residual: Optional[torch.Tensor] = None,
+            res_scale: Optional[torch.Tensor] = None,
+            res_stride: int = 1,
             preact: Optional[Preact] = None):
     """int8 conv with int32 accumulation and a fused epilogue.
 
@@ -353,92 +430,119 @@ def conv_s8(xq: torch.Tensor, wt: torch.Tensor, stride: int = 1, *,
 
     - "int32": y as int32;
     - "requant": int8 clip(rint(y*mul + add), lo, 127), lo 0 with ``relu``
-      else -127; ``fma`` fuses the multiply-add (K2), else it is XLA's
-      separate multiply and add;
-    - "dequant": bf16(y*mul + add), then max(., 0) with ``relu``, then
-      + ``residual`` (bf16) when given;
+      else -127; ``fma`` fuses the multiply-add (K2, and XLA's contraction
+      on the static path), else it is a separate multiply and add;
+    - "dequant": bf16(y*mul + add) (``fma`` as for "requant"), then
+      max(., 0) with ``relu``, then + ``residual`` (bf16) when given;
     - "dequant_f32": f32 fma(y, mul, add) (K2's projection shortcut);
     - "residual": bf16(fma(y, mul, residual) + add) (K2's last conv),
-      residual f32 or bf16.
+      residual f32 or bf16;
+    - "stream" (the int8 stream's conv3): int8 clip(rint(v), -127, 127)
+      with v = fma(y, mul, add) and then, for an int8 ``residual`` (the
+      identity shortcut, read at ``res_stride``), fma(residual, res_scale,
+      v) with res_scale = s_in / s_out, or, for a bf16 one (the projection
+      shortcut), v + residual / res_scale with res_scale = s_out.
 
-    With ``preact`` (the "dequant" and "residual" epilogues) it returns
-    (out, pq): pq is ``preact_quant(out, *preact)``, computed in the same
-    pass from the bf16 value stored.
+    With ``preact`` it returns (out, pq): pq is ``preact_quant(out,
+    *preact)``, computed in the same pass from the value stored (modes 0
+    and 1 after the bf16 epilogues "dequant" and "residual", modes 2 and 3
+    after "stream").
     """
     pre = preact if preact is not None else Preact(None, None, None, 0)
-    tensors = _operands(xq, wt, mul, add, residual, pre.pa, pre.pb, pre.s)
+    tensors = _operands(xq, wt, mul, add, residual, res_scale, pre.pa,
+                        pre.pb, pre.s, pre.ds)
     if _device_of(tensors, "conv_s8") == "cpu":
-        _check_conv(xq, wt, stride, epilogue, mul, add, residual, preact)
+        _check_conv(xq, wt, stride, epilogue, mul, add, residual, preact,
+                    res_scale, res_stride)
         return epilogue_reference(
             conv_s8_reference(xq, wt, stride), epilogue, mul, add,
-            relu=relu, fma=fma, residual=residual, preact=preact,
+            relu=relu, fma=fma, residual=residual, res_scale=res_scale,
+            res_stride=res_stride, preact=preact,
         )
     return _conv_cuda(CONV, xq, wt, stride, epilogue, mul, add, relu=relu,
-                      fma=fma, residual=residual, preact=preact)
+                      fma=fma, residual=residual, res_scale=res_scale,
+                      res_stride=res_stride, preact=preact)
 
 
-def _check_preact_operands(c, pa, pb, s, mode):
-    if mode not in (0, 1):
-        raise ValueError(f"preact mode {mode} is not 0 (K2) or 1 (XLA path)")
+def _check_preact_operands(c, pa, pb, s, mode, ds=None):
+    if mode not in PREACT_MODES:
+        raise ValueError(f"preact mode {mode} is not one of {PREACT_MODES}")
     for name, t in (("pa", pa), ("pb", pb)):
         if (t is None or tuple(t.shape) != (c,)
                 or t.dtype != torch.float32):
             raise ValueError(f"{name} must be ({c},) float32")
-    if mode == 1 and (s is None or s.numel() != 1 or s.dtype != torch.float32):
-        raise ValueError("mode 1 needs the float32 scale s")
+    if mode in (1, 3) and (s is None or s.numel() != 1
+                           or s.dtype != torch.float32):
+        raise ValueError(f"mode {mode} needs the float32 scale s")
+    if mode == 3 and (ds is None or ds.numel() != 1
+                      or ds.dtype != torch.float32):
+        raise ValueError("mode 3 needs the float32 dequantisation scale ds")
 
 
-def _check_preact(x, pa, pb, s, mode):
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"preact_quant takes bf16, got {x.dtype}")
-    _check_preact_operands(x.shape[-1], pa, pb, s, mode)
+def _check_preact(x, pa, pb, s, mode, ds=None):
+    want, name = ((torch.bfloat16, "bf16") if mode in (0, 1)
+                  else (torch.int8, "int8"))
+    if x.dtype != want:
+        raise ValueError(f"preact_quant mode {mode} takes {name}, got "
+                         f"{x.dtype}")
+    _check_preact_operands(x.shape[-1], pa, pb, s, mode, ds)
 
 
-def preact_quant_reference(x, pa, pb, s=None, *, mode: int = 0):
+def preact_quant_reference(x, pa, pb, s=None, *, mode: int = 0, ds=None):
     """Plain version of ``preact_quant``."""
-    if mode == 0:
+    if mode in (0, 2):
         v = torch.clamp_min(fma_reference(x.float(), pa, pb), 0.0)
     else:
+        if mode == 3:
+            x = (x.float() * ds.reshape(())).to(torch.bfloat16)
         t = (x.float() * pa).to(torch.bfloat16).float()
         p = torch.clamp_min((t + pb).to(torch.bfloat16).float(), 0.0)
         v = p / s.reshape(())
     return torch.round(v).clamp(0.0, 127.0).to(torch.int8)
 
 
-def _preact_cuda(counter, x, pa, pb, s=None, *, mode: int = 0):
-    """Launch the pre-activation kernel; counts under LAUNCHES[counter]."""
-    _check_preact(x, pa, pb, s, mode)
+def _preact_cuda(counter, x, pa, pb, s=None, *, mode: int = 0, ds=None):
+    """Launch the pre-activation kernel; counts under LAUNCHES[counter] and
+    PREACT_MODE_LAUNCHES[mode]."""
+    _check_preact(x, pa, pb, s, mode, ds)
     c = x.shape[-1]
     if c % 8:
         raise ValueError(f"the preact kernel takes C % 8 == 0, got {c}")
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    _check_cuda_layout((x, out, pa, pb), _operands(s))
+    _check_cuda_layout((x, out, pa, pb), _operands(s, ds))
     lib = _kernel_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.resnet_int8_preact_launch(
             x.data_ptr(), out.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-            _ptr(s), x.numel() // max(c, 1), c, mode, stream,
+            _ptr(s), _ptr(ds), x.numel() // max(c, 1), c, mode, stream,
         )
     _raise_on(code, PREACT)
     LAUNCHES[counter] += 1
+    PREACT_MODE_LAUNCHES[mode] += 1
     return out
 
 
 def preact_quant(x: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
                  s: Optional[torch.Tensor] = None, *,
-                 mode: int = 0) -> torch.Tensor:
-    """bf16 residual stream (..., C) -> int8 pre-activation, per channel c:
+                 mode: int = 0,
+                 ds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Residual stream (..., C) -> int8 pre-activation, per channel c:
 
-    - mode 0 (K2, ``_unit_body``): clip(rint(max(fma(x, pa, pb), 0)), 0, 127)
-      with pa = A / s_p, pb = B / s_p;
-    - mode 1 (the XLA static path): p = max(bf16(bf16(x*pa) + pb), 0) with
-      pa, pb the bf16-rounded BN fold; clip(rint(p / s), 0, 127).
+    - mode 0 (K2, ``_unit_body``), bf16 x: clip(rint(max(fma(x, pa, pb),
+      0)), 0, 127) with pa = A / s_p, pb = B / s_p;
+    - mode 1 (the XLA static path), bf16 x: p = max(bf16(bf16(x*pa) + pb),
+      0) with pa, pb the bf16-rounded BN fold; clip(rint(p / s), 0, 127);
+    - mode 2 (the int8 stream, ``resnet_int8.py:565-576``), int8 x: mode
+      0's arithmetic with pa = s_stream * A / s_p, pb = B / s_p (XLA
+      contracts the multiply-add on the CPU);
+    - mode 3 (an int8 -> bf16 block boundary), int8 x: mode 1 on bf16(x *
+      ds), ds the bf16-rounded stream scale.
     """
-    if _device_of(_operands(x, pa, pb, s), "preact_quant") == "cpu":
-        _check_preact(x, pa, pb, s, mode)
-        return preact_quant_reference(x, pa, pb, s, mode=mode)
-    return _preact_cuda(PREACT, x, pa, pb, s, mode=mode)
+    if _device_of(_operands(x, pa, pb, s, ds), "preact_quant") == "cpu":
+        _check_preact(x, pa, pb, s, mode, ds)
+        return preact_quant_reference(x, pa, pb, s, mode=mode, ds=ds)
+    return _preact_cuda(PREACT, x, pa, pb, s, mode=mode, ds=ds)
 
 
 # ---------------------------------------------------------------------------
@@ -672,6 +776,9 @@ def _unit_cuda(x, p, has_shortcut, nxt):
     plan = k2_plan(n, h, w, cin, cb, cout, has_shortcut)
     nx = nxt if nxt is not None else Preact(None, None, None, 0)
     if nxt is not None:
+        if nxt.mode not in (0, 1):
+            raise ValueError(f"K2 stores the bf16 stream: its next preact "
+                             f"takes mode 0 or 1, not {nxt.mode}")
         _check_preact_operands(cout, *nxt)
     out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
     pq = (None if nxt is None
@@ -700,6 +807,7 @@ def _unit_cuda(x, p, has_shortcut, nxt):
         msg = lib.k2_unit_error_string(code).decode()
         raise RuntimeError(f"{BLOCK} launch failed: {msg} ({code})")
     LAUNCHES[BLOCK] += 1
+    _count_preact(nxt)
     return out, pq
 
 
@@ -728,6 +836,9 @@ def fused_block_pq(x: torch.Tensor, unit_params: Sequence[Dict], *, h: int,
     version."""
     tensors = [x] + [t for p in unit_params for t in p.values()]
     cuda = _device_of(tensors, "fused_block") == "cuda"
+    if next_preact is not None and next_preact.mode not in (0, 1):
+        raise ValueError(f"a K2 chain stores the bf16 stream: its next "
+                         f"preact takes mode 0 or 1, not {next_preact.mode}")
     _check_block(x, unit_params, h, w, unit_specs)
     if pq is not None and (pq.shape != x.shape or pq.dtype != torch.int8):
         raise ValueError(f"pq must be int8 of x's shape {tuple(x.shape)}")

@@ -199,19 +199,18 @@ def load_jax_int8(qp, scales, device=None):
     as the port's, on ``device``.
 
     Strict: every key of ``qp`` must be a key the port's
-    ``prepare_int8_params`` makes, or one of the int8_root keys, which are
-    dropped by name; every key the port makes must be present. Every scale
+    ``prepare_int8_params`` makes (the int8_root stems' weights and scales
+    included), and every key the port makes must be present. Every scale
     must be a scalar.
     """
     from human_dynamics_tpu_torch.models.resnet import ResNetV2_50
     from human_dynamics_tpu_torch.models.resnet_int8 import (
-        INT8_ROOT_KEYS,
         prepare_int8_params,
     )
 
     # The key set (and the shapes) the port makes, from a meta-device trunk.
     want = prepare_int8_params(ResNetV2_50(device="meta"))
-    extra = sorted(set(qp) - set(want) - set(INT8_ROOT_KEYS))
+    extra = sorted(set(qp) - set(want))
     missing = sorted(set(want) - set(qp))
     if extra or missing:
         raise ValueError(

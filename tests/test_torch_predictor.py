@@ -263,13 +263,12 @@ def test_fp32_modules_run_without_tf32(image_models, options, full_fp32):
 
 
 def test_predictor_rejects_unported_options(phi_models):
-    """unroll_chunks, int8_root and int8_stream are not ported; the bf16
-    and int8 options are."""
+    """unroll_chunks (a TPU compile device) is not ported; the bf16 and
+    int8 options are."""
     _, _, tm = phi_models
     smpl = synthetic_smpl_model(num_verts=32, num_kps=19)
-    for opt in ("unroll_chunks", "int8_root", "int8_stream"):
-        with pytest.raises(TypeError):
-            HmmrPredictor(tm, None, smpl, device="cpu", **{opt: True})
+    with pytest.raises(TypeError):
+        HmmrPredictor(tm, None, smpl, device="cpu", unroll_chunks=True)
     for opt in ("bf16_encoder", "bf16_temporal"):
         HmmrPredictor(tm, None, smpl, device="cpu", **{opt: True})
     with pytest.warns(RuntimeWarning, match="dynamic"):

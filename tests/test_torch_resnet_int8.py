@@ -96,10 +96,11 @@ def cuda_device():
 def test_prepare_int8_params_matches_jax(trunk):
     got = T.prepare_int8_params(trunk["port"])
     want = trunk["qp"]
-    assert set(got) == set(want) - set(T.INT8_ROOT_KEYS)
+    assert set(got) == set(want)
+    assert set(T.INT8_ROOT_KEYS) <= set(got)
     for k, v in got.items():
         w = want[k]
-        if k.endswith("/wq"):
+        if "/wq" in k:
             assert v.dtype == torch.int8, k
             np.testing.assert_array_equal(v.numpy(), w, err_msg=k)
         elif k in ("root/w", "root/b"):
@@ -239,18 +240,16 @@ def test_fused_bottleneck_unit_matches_jax_interpret(trunk, has_shortcut):
                                   np.asarray(want.astype(jnp.float32)))
 
 
-def test_unported_int8_options_raise(trunk):
-    for opt in ("int8_stream", "int8_root"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.apply_int8_static(trunk["tqp"], trunk["tscales"], trunk["x"],
-                                **{opt: True})
-
-
 def test_load_jax_int8_is_strict(trunk):
     qp = dict(trunk["qp"])
-    # The int8_root keys are dropped by name and nothing else.
+    # Every key is carried, the int8_root stems' included.
     tqp, _ = load_jax_int8(qp, None)
-    assert not set(T.INT8_ROOT_KEYS) & set(tqp)
+    assert set(tqp) == set(qp)
+    for k in T.INT8_ROOT_KEYS:
+        np.testing.assert_array_equal(tqp[k].numpy(), qp[k])
+    with pytest.raises(ValueError, match="missing"):
+        load_jax_int8({k: v for k, v in qp.items() if k != "root/wq_s2d"},
+                      None)
     with pytest.raises(ValueError, match="no port counterpart"):
         load_jax_int8({**qp, "root/extra": qp["root/b32"]}, None)
     qp.pop("block4/unit_3/bottleneck_v2/conv3/wq")
@@ -262,7 +261,8 @@ def test_load_jax_int8_is_strict(trunk):
 
 def _unfused_static(plan, images):
     """run_int8_static as it was before the pre-activations were fused: a
-    standalone preact_quant per unit (fused_block_reference for K2)."""
+    standalone preact_quant per unit (fused_block_reference for K2); the
+    epilogues' multiply-adds fused, as XLA contracts them."""
     x = T._root(plan["head"], images)
     for u in plan["steps"]:
         if u["kind"] == "k2":
@@ -274,15 +274,15 @@ def _unfused_static(plan, images):
         pq = K.preact_quant(x, u["pa"], u["pb"], u["s_p"], mode=1)
         if "wsc" in u:
             shortcut = K.conv_s8(pq, u["wsc"], stride, epilogue="dequant",
-                                 mul=u["msc"], add=u["asc"])
+                                 mul=u["msc"], add=u["asc"], fma=True)
         else:
             shortcut = T._subsample(x, stride)
         h = K.conv_s8(pq, u["w1"], 1, epilogue="requant", mul=u["m1"],
-                      add=u["a1"], relu=True)
+                      add=u["a1"], relu=True, fma=True)
         h = K.conv_s8(h, u["w2"], stride, epilogue="requant", mul=u["m2"],
-                      add=u["a2"], relu=True)
+                      add=u["a2"], relu=True, fma=True)
         x = K.conv_s8(h, u["w3"], 1, epilogue="dequant", mul=u["m3"],
-                      add=u["a3"], residual=shortcut)
+                      add=u["a3"], residual=shortcut, fma=True)
     return T._head(plan["head"], x)
 
 
@@ -588,6 +588,7 @@ def test_cuda_conv_matches_plain(cuda_device, geom):
     for epi, kw in (
         ("requant", dict(relu=True)), ("requant", dict(fma=True)),
         ("dequant", dict(relu=True)), ("dequant", dict(residual=res_bf)),
+        ("dequant", dict(residual=res_bf, fma=True)),
         ("dequant_f32", {}), ("residual", dict(residual=res_f)),
         ("residual", dict(residual=res_bf)),
     ):
