@@ -233,6 +233,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    both clips timed in turns), and a uint8 stream through it against its
    offline output.
 
+21. The reference's TF-slim checkpoints without TensorFlow: the committed
+   fixture (tests/data/tf_slim_ckpt, a phi-mode model at feature 32 in one
+   data shard and most of it again in two) read by utils.tf_bundle, every
+   variable CRC-checked, the reader's ms per MB; the two bundles' shared
+   variables equal; convert_tf_checkpoint (strict) into the port's
+   phi-mode HmmrModel, built on the card and on the CPU, one group of B=8
+   phi windows of T=20 through the fused-SMPL predictor on each: omegas
+   within phase 11's bound, K1 launched on the card. Then
+   MocapTemporalStream over the temporal records of the port's
+   datasets.mocap writer: every window of the source sequences yielded
+   once per pass, its deltas equal to poses[1:] - poses[:-1].
+
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -423,6 +435,15 @@ ROOT_FP32_COS, ROOT_REL = 0.97, 0.15
 N_ROOT_TURNS = 2
 PROFILE = "--profile" in sys.argv[1:]
 TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
+# Phase 21: the fixture's model (tests/data/tf_slim_ckpt/make_fixture.py)
+# and one group of B=8 windows of T=20 (8 good frames each) of its phi.
+TF_FIXTURE = os.path.join(HERE, "tests", "data", "tf_slim_ckpt")
+TF_SLIM_KW = dict(include_resnet=False, num_conv_layers=3,
+                  delta_t_values=(), do_hallucinate=True)
+TF_FEATURE, TF_PHI_FRAMES = 32, 64
+# Phase 21's mocap sequences: 1000 frames at 100 fps, 250 at the writer's
+# 25 fps, four 50-frame windows each.
+MOCAP_SEQS, MOCAP_FRAMES, MOCAP_WINDOW = 2, 1000, 50
 
 # Published peaks of one H100 SXM (dense): int8 and TF32 tensor cores, FP32
 # pipe, HBM.
@@ -4647,6 +4668,119 @@ def phase_int8_root(torch, np, model, frames, calib, bench, smpl, kw, K,
     return out
 
 
+def phase_tf_checkpoint(torch, np, dev, smpl_cuda, card):
+    """Phase 21: the TF-slim fixture read without TensorFlow and run through
+    the phi predictor on the card against the CPU; MocapTemporalStream."""
+    import tempfile
+
+    from human_dynamics_tpu_torch.core import synthetic_smpl_model
+    from human_dynamics_tpu_torch.data.loader import MocapTemporalStream
+    from human_dynamics_tpu_torch.datasets.mocap import (
+        write_mocap_temporal_records,
+    )
+    from human_dynamics_tpu_torch.infer import HmmrPredictor
+    from human_dynamics_tpu_torch.models import HmmrModel
+    from human_dynamics_tpu_torch.utils import tf_bundle
+    from human_dynamics_tpu_torch.utils.checkpoint import convert_tf_checkpoint
+    from human_dynamics_tpu_torch.utils.weights import load_jax_variables
+
+    bundles = {}
+    for sub in ("", "sharded"):
+        d = os.path.join(TF_FIXTURE, sub)
+        t0 = time.perf_counter()
+        reader = tf_bundle.load_checkpoint(d)
+        values = {k: reader.get_tensor(k)
+                  for k in reader.get_variable_to_shape_map()}
+        sec = time.perf_counter() - t0
+        mb = sum(v.nbytes for v in values.values()) / 2**20
+        shards = sum(".data-" in f for f in os.listdir(d))
+        print(f"TF bundle reader [{card}]: {os.path.relpath(d, HERE)}, "
+              f"{len(values)} variables, {shards} data shard(s), {mb:.3f} MB "
+              f"in {sec * 1e3:.2f} ms, {sec * 1e3 / mb:.2f} ms/MB "
+              f"(index, CRC-32C of every value, host clock)")
+        bundles[sub or "one"] = values
+    one, two = bundles["one"], bundles["sharded"]
+    check(int(one["global_step"]) == 1 and one["global_step"].dtype
+          == np.int64, "the fixture's global_step is not an int64 1")
+    for k, v in two.items():
+        check(v.dtype == one[k].dtype and np.array_equal(v, one[k]),
+              f"{k} differs between the 1- and 2-shard bundles")
+    t0 = time.perf_counter()
+    variables = convert_tf_checkpoint(TF_FIXTURE, strict=True, **TF_SLIM_KW)
+    print(f"convert_tf_checkpoint (strict): "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+
+    phi = torch.from_numpy(np.random.RandomState(21).randn(
+        TF_PHI_FRAMES, TF_FEATURE).astype(np.float32))
+
+    def predict(device):
+        model = HmmrModel(feature_dim=TF_FEATURE, device="meta",
+                          **TF_SLIM_KW).to_empty(device="cpu")
+        load_jax_variables(model, variables)
+        smpl = synthetic_smpl_model(num_verts=SMPL_VERTS, num_kps=SMPL_KPS)
+        pred = HmmrPredictor(model, None, smpl, batch_size=8, seq_length=20,
+                             use_fused_smpl=True, device=device)
+        return pred.predict_all_images(phi.to(device), as_numpy=False)
+
+    ref = predict("cpu")
+    smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME] = 0
+    out = predict(dev)
+    torch.cuda.synchronize()
+    launches = smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME]
+    check(launches > 0, "the phi predictor on the TF fixture did not launch "
+          "K1")
+    check(set(out) == set(ref), "card and CPU outputs have other keys")
+    for k, shape in (("verts", (TF_PHI_FRAMES, SMPL_VERTS, 3)),
+                     ("omegas", (TF_PHI_FRAMES, 85))):
+        check(tuple(out[k].shape) == shape, f"TF fixture phi predictor: {k} "
+              f"has shape {tuple(out[k].shape)}, want {shape}")
+    for k, v in out.items():
+        check(bool(torch.isfinite(v).all()),
+              f"TF fixture phi predictor: {k} is not finite")
+    errs = {k: max_abs(out[k].cpu(), ref[k])
+            for k in ("omegas", "joints", "verts")}
+    print(f"TF fixture phi predictor, {TF_PHI_FRAMES} frames (B=8, T=20), "
+          f"card vs CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       errs.items())
+          + f" (omegas bound {TF32_OMEGA_TOL:g}); K1 launched {launches} "
+          "time(s)")
+    check(errs["omegas"] <= TF32_OMEGA_TOL,
+          f"TF fixture omegas card vs CPU {errs['omegas']}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(22)
+        src = []
+        for i in range(MOCAP_SEQS):
+            d = os.path.join(tmp, "mosh", "CMU")
+            os.makedirs(d, exist_ok=True)
+            poses = rng.randn(MOCAP_FRAMES, 72).astype(np.float32)
+            np.savez(os.path.join(d, f"seq{i}.npz"), poses=poses,
+                     betas=rng.randn(10).astype(np.float32))
+            sub = poses[::4]
+            src += [sub[s:s + MOCAP_WINDOW].tobytes() for s in
+                    range(0, len(sub) - MOCAP_WINDOW, MOCAP_WINDOW)]
+        write_mocap_temporal_records(
+            os.path.join(tmp, "mosh"),
+            os.path.join(tmp, "mocap_neutrMosh_temporal_pose"), "CMU")
+        files = MocapTemporalStream.mocap_files(tmp, ["CMU"])
+        stream = iter(MocapTemporalStream(files, seed=0))
+        seen = []
+        for _ in range(2 * len(src)):
+            pose, deltas = next(stream)
+            check(pose.shape == (MOCAP_WINDOW, 72)
+                  and deltas.shape == (MOCAP_WINDOW - 1, 72),
+                  f"temporal mocap shapes {pose.shape}, {deltas.shape}")
+            check(np.array_equal(deltas, pose[1:] - pose[:-1]),
+                  "temporal mocap deltas != poses[1:] - poses[:-1]")
+            seen.append(pose.tobytes())
+    for p in range(2):
+        check(sorted(seen[p * len(src):(p + 1) * len(src)]) == sorted(src),
+              f"pass {p} of MocapTemporalStream is not every window once")
+    print(f"MocapTemporalStream: {len(files)} file(s), two passes of "
+          f"{len(src)} windows of {MOCAP_WINDOW} frames, deltas equal")
+    return {"launches": launches, "omegas_err": errs["omegas"]}
+
+
 def main():
     import numpy as np
     import torch
@@ -4857,6 +4991,11 @@ def main():
     ir = phase_int8_root(torch, np, model, frames, calib, bench, smpl, kw, K,
                          smpl_cuda, card)
     print(f"phase 20 took {time.perf_counter() - t20:.1f} s")
+
+    # Phase 21: TF-slim checkpoints without TensorFlow; MocapTemporalStream.
+    t21 = time.perf_counter()
+    phase_tf_checkpoint(torch, np, dev, smpl_cuda, card)
+    print(f"phase 21 took {time.perf_counter() - t21:.1f} s")
 
     csrc = "human_dynamics_tpu_torch/ops/csrc/"
     kernels = [

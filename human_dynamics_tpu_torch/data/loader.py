@@ -7,7 +7,9 @@ same batches as the JAX pipeline for the same records and seed:
 - 2D/3D split balancing: each batch is half in-the-wild 2-D data, half 3-D
   (h36m) data, shuffled.
 - A random contiguous T-window per tube; short tubes are zero-padded to T.
-- A mocap real-pose pool sized exactly to the discriminator's fake pool.
+- A mocap real-pose pool sized exactly to the discriminator's fake pool;
+  ``MocapTemporalStream`` yields the temporal mocap records' (pose,
+  delta-pose) windows.
 - A background thread assembles numpy batches ahead of the consumer.
 
 Image mode (``precomputed_phi=False``) reads the frames of the sampled
@@ -245,6 +247,42 @@ class MocapStream:
         while True:
             for i in self.rng.permutation(len(poses)):
                 yield poses[i], shapes[i]
+
+
+class MocapTemporalStream:
+    """Real delta-pose windows for temporal priors, over the records that
+    ``datasets.mocap.write_mocap_temporal_records`` writes; the files are
+    read in a fresh permutation on every pass."""
+
+    def __init__(self, files: List[str], seed: int = 0):
+        if not files:
+            raise FileNotFoundError("No temporal mocap shards found")
+        self.files = files
+        self.rng = np.random.RandomState(seed)
+
+    @staticmethod
+    def mocap_files(dataset_dir: str, mocap_datasets: Sequence[str]):
+        """{data_dir}/mocap_neutrMosh_temporal_pose/
+        neutrSMPL_{ds}_*.tfrecord."""
+        files: List[str] = []
+        for ds in mocap_datasets:
+            files += sorted(glob.glob(os.path.join(
+                dataset_dir, "mocap_neutrMosh_temporal_pose",
+                f"neutrSMPL_{ds}_*.tfrecord",
+            )))
+        return files
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yields (poses (T, 72), delta_poses (T-1, 72))."""
+        while True:
+            for fi in self.rng.permutation(len(self.files)):
+                for serialized in read_tfrecord(self.files[fi]):
+                    feats = decode_example(serialized)
+                    t = int(np.asarray(feats["T"])[0])
+                    pose = np.asarray(feats["pose"], np.float32).reshape(t, 72)
+                    deltas = np.asarray(
+                        feats["delta_pose"], np.float32).reshape(t - 1, 72)
+                    yield pose, deltas
 
 
 class TrainDataPipeline:

@@ -119,7 +119,9 @@ except ImportError:  # pragma: no cover - fallback
     _crc32c = crc32c_lanes
 
 
-def _masked_crc(data: bytes) -> int:
+def masked_crc32c(data: bytes) -> int:
+    """CRC-32C of ``data`` in the masked form TensorFlow stores (TFRecord
+    framing, tensor-bundle values and table blocks)."""
     crc = _crc32c(data)
     return ((crc >> 15 | crc << 17) + 0xA282EAD8) & 0xFFFFFFFF
 
@@ -136,9 +138,9 @@ class TFRecordWriter:
     def write(self, record: bytes) -> None:
         length = struct.pack("<Q", len(record))
         self._f.write(length)
-        self._f.write(struct.pack("<I", _masked_crc(length)))
+        self._f.write(struct.pack("<I", masked_crc32c(length)))
         self._f.write(record)
-        self._f.write(struct.pack("<I", _masked_crc(record)))
+        self._f.write(struct.pack("<I", masked_crc32c(record)))
 
     def close(self) -> None:
         self._f.close()
@@ -159,13 +161,13 @@ def read_tfrecord(path: str, check_crc: bool = False) -> Iterator[bytes]:
                 return
             (length,) = struct.unpack("<Q", header)
             (len_crc,) = struct.unpack("<I", f.read(4))
-            if check_crc and _masked_crc(header) != len_crc:
+            if check_crc and masked_crc32c(header) != len_crc:
                 raise IOError(f"Corrupt length CRC in {path}")
             data = f.read(length)
             if len(data) < length:
                 raise IOError(f"Truncated record in {path}")
             (data_crc,) = struct.unpack("<I", f.read(4))
-            if check_crc and _masked_crc(data) != data_crc:
+            if check_crc and masked_crc32c(data) != data_crc:
                 raise IOError(f"Corrupt data CRC in {path}")
             yield data
 

@@ -167,7 +167,8 @@ def main():
                         choices=["train", "val", "test"])
     parser.add_argument("--resnet_ckpt", default=None,
                         help="optional: extract phis with this resnet "
-                             "(an npz in the JAX package's layout)")
+                             "(an npz in the JAX package's layout or a "
+                             "TF-slim checkpoint prefix)")
     parser.add_argument("--mosh_ignore", action="store_true")
     parser.add_argument("--device", default=None,
                         help="where the phis run (default: the GPU)")

@@ -217,7 +217,8 @@ def main():
     parser.add_argument("--num_copies", type=int, default=1)
     parser.add_argument("--resnet_ckpt", default=None,
                         help="optional: extract phis with this resnet "
-                             "(an npz in the JAX package's layout)")
+                             "(an npz in the JAX package's layout or a "
+                             "TF-slim checkpoint prefix)")
     parser.add_argument("--device", default=None,
                         help="where the phis run (default: the GPU)")
     parser.add_argument(

@@ -49,7 +49,8 @@ class FeatureExtractor:
         """resnet: a port ``ResNetV2_50`` (copied when it lies on another
         device), a flax variables tree in the JAX package's layout (see
         ``resnet_from_variables``), or the path of an npz checkpoint (a
-        Trainer checkpoint's ``params_e`` is taken). ``device``: None is
+        Trainer checkpoint's ``params_e`` is taken) or the prefix of a
+        reference TF-slim checkpoint. ``device``: None is
         the card, and raises without one; the CPU runs only when asked."""
         from human_dynamics_tpu_torch.eval.harness import load_model_variables
 

@@ -499,15 +499,20 @@ def print_summary(dataset: str, errors: Dict[str, float]) -> None:
 
 def load_model_variables(load_path: str):
     """The flax variables tree of an npz checkpoint written by the JAX
-    package's ``save_checkpoint``; a Trainer checkpoint's model variables
-    (``params_e``) are taken from it. Other formats need JAX to read."""
+    package's ``save_checkpoint`` (a Trainer checkpoint's model variables,
+    ``params_e``, are taken from it) or of the reference's TF-slim
+    checkpoint at prefix ``load_path``. Other formats need JAX to read."""
+    from human_dynamics_tpu_torch.utils.checkpoint import convert_tf_checkpoint
     from human_dynamics_tpu_torch.utils.weights import load_jax_npz
 
+    if os.path.exists(load_path + ".index"):
+        converted = convert_tf_checkpoint(load_path)
+        return converted[0] if isinstance(converted, tuple) else converted
     if not load_path.endswith(".npz"):
         raise ValueError(
             f"--load_path {load_path!r}: the port reads .npz checkpoints "
-            "only; an orbax directory, a pkl or a TF checkpoint needs JAX to "
-            "read. Convert it once with the JAX package: "
+            "and TF checkpoint prefixes; an orbax directory or a pkl needs "
+            "JAX to read. Convert it once with the JAX package: "
             "save_checkpoint('ckpt.npz', load_variables(path)) from "
             "human_dynamics_tpu.utils.checkpoint"
         )
@@ -526,7 +531,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--tf_dir", required=True)
     parser.add_argument("--load_path", required=True,
-                        help="an npz checkpoint of the JAX package")
+                        help="an npz checkpoint of the JAX package or a "
+                             "TF-slim checkpoint prefix")
     parser.add_argument("--smpl_model_path", required=True,
                         help="an SMPL npz (convert_smpl_pkl)")
     parser.add_argument("--datasets", nargs="+",

@@ -20,7 +20,8 @@ schema and dtypes (cams/joints/kps/poses/shapes/verts/omegas, their
 original frame, 2-D skeleton, rotated mesh) rendered on the host.
 
 ``--load_path`` is an npz of the JAX package's layout
-(``utils.checkpoint``; a Trainer checkpoint's ``params_e`` is taken).
+(``utils.checkpoint``; a Trainer checkpoint's ``params_e`` is taken) or
+the prefix of a reference TF-slim checkpoint (``convert_tf_checkpoint``).
 Reading frames, drawing skeletons and writing the video need cv2, which is
 imported only there; an existing pkl or mp4 is reused, as the reference
 does.
@@ -258,7 +259,8 @@ def main(argv=None):
     parser.add_argument("--poseflow_dir",
                         help="PoseFlow checkout (see extract_tracks)")
     parser.add_argument("--load_path", required=True,
-                        help="an npz checkpoint of the JAX package's layout")
+                        help="an npz checkpoint of the JAX package's layout "
+                             "or a TF-slim checkpoint prefix")
     parser.add_argument("--smpl_model_path", required=True,
                         help="an SMPL npz (convert_smpl_pkl) or the SMPL pkl")
     parser.add_argument("--out_dir", default="demo_output")

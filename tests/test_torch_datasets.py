@@ -35,7 +35,10 @@ from human_dynamics_tpu.datasets import tdpw as JT
 from human_dynamics_tpu.datasets import test_records as JTR
 from human_dynamics_tpu.datasets import visualize_records as JV
 from human_dynamics_tpu.utils import autorestart as JA
-from human_dynamics_tpu_torch.data.loader import MocapStream
+from human_dynamics_tpu_torch.data.loader import (
+    MocapStream,
+    MocapTemporalStream,
+)
 from human_dynamics_tpu_torch.data.tfrecord import read_tfrecord
 from human_dynamics_tpu_torch.datasets import common as PC
 from human_dynamics_tpu_torch.datasets import h36m as PH
@@ -416,6 +419,34 @@ def test_mocap_records_byte_equal(tmp_path):
     assert sum(1 for s in shards for _ in read_tfrecord(str(s))) == 4 * 230
     pose, shape = next(iter(MocapStream([str(s) for s in shards])))
     assert pose.shape == (72,) and shape.shape == (10,)
+
+
+def test_mocap_temporal_stream_matches_jax(tmp_path):
+    """MocapTemporalStream over two temporal record files (two windows
+    each): the same files, and the same first three (pose, delta_pose)
+    yields as JAX's stream, seed 0."""
+    from human_dynamics_tpu.data.loader import MocapTemporalStream as JStream
+
+    rng = np.random.RandomState(19)
+    root = str(tmp_path / "mocap_neutrMosh_temporal_pose")
+    for ds in ("CMU", "H36"):
+        d = tmp_path / "mosh" / ds
+        d.mkdir(parents=True)
+        np.savez(str(d / "seq.npz"),
+                 poses=rng.randn(100, 72).astype(np.float32),
+                 betas=rng.randn(10).astype(np.float32))
+        PM.write_mocap_temporal_records(str(tmp_path / "mosh"), root, ds,
+                                        window=10)
+    files = MocapTemporalStream.mocap_files(str(tmp_path), ["CMU", "H36"])
+    assert files == JStream.mocap_files(str(tmp_path), ["CMU", "H36"])
+    assert len(files) == 2
+    got, want = iter(MocapTemporalStream(files)), iter(JStream(files))
+    for _ in range(3):
+        (pose, deltas), (jpose, jdeltas) = next(got), next(want)
+        assert pose.shape == (10, 72) and deltas.shape == (9, 72)
+        np.testing.assert_array_equal(pose, jpose)
+        np.testing.assert_array_equal(deltas, jdeltas)
+        np.testing.assert_array_equal(deltas, pose[1:] - pose[:-1])
 
 
 @pytest.mark.parametrize("dataset", ["penn", "tdpw", "h36m"])

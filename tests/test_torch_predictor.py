@@ -301,21 +301,25 @@ def _run(code_or_args, cwd):
 
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither jax nor flax nor
-    the JAX package, nor cv2 (only JPEG records, the numpy mesh metric,
+    the JAX package, nor TensorFlow or protobuf (TF checkpoints are read by
+    utils.tf_bundle), nor cv2 (only JPEG records, the numpy mesh metric,
     skeleton drawing and video writing import it, when they run)."""
     code = (
         "import pkgutil, sys, importlib, human_dynamics_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
+        "assert 'human_dynamics_tpu_torch.utils.tf_bundle' in mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'human_dynamics_tpu', 'cv2'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'human_dynamics_tpu', 'cv2', "
+        "'tensorflow') or k.startswith('google.protobuf'))\n"
         "print(len(mods)); assert not bad, bad\n"
     )
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
-    # the demo, viz/, datasets/, utils/autorestart and scripts/ included
-    assert int(proc.stdout.split()[-1]) >= 76
+    # the demo, viz/, datasets/, utils/autorestart, scripts/ and
+    # utils/tf_bundle included
+    assert int(proc.stdout.split()[-1]) >= 77
 
 
 def test_chip_smoke_fails_without_gpu():
