@@ -230,8 +230,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    7x7/2 conv and bias; max_pool_same and the permute back); the bench
    predictor with int8_root="u8" on the 480-frame uint8 clip (launches per
    clip as its plan predicts, omegas within 0.5 of the bench config's,
-   both clips timed in turns), and a uint8 stream through it against its
-   offline output.
+   both clips timed in turns), a uint8 stream through it against its
+   offline output, and one profiled clip of each (device kernel time and
+   idle share) with the threads alive in the process.
 
 21. The reference's TF-slim checkpoints without TensorFlow: the committed
    fixture (tests/data/tf_slim_ckpt, a phi-mode model at feature 32 in one
@@ -433,6 +434,7 @@ ROOT_RUNS = (
 )
 ROOT_FP32_COS, ROOT_REL = 0.97, 0.15
 N_ROOT_TURNS = 2
+STEM_TAPS = 7 * 7 * 3    # the root conv's taps: the bound's work per output
 PROFILE = "--profile" in sys.argv[1:]
 TF32_OMEGA_TOL = 1e-4    # the fp32 predictor's parity bound against JAX
 # Phase 21: the fixture's model (tests/data/tf_slim_ckpt/make_fixture.py)
@@ -546,7 +548,7 @@ class Recorder:
 
 def reset_counts(K):
     """Zero the int8 kernels' launch counters: by wrapper, by path, by
-    epilogue, pre-activations by mode, and the int8 stem's and pool's."""
+    epilogue, pre-activations by mode, and the int8 stem and pool's."""
     from human_dynamics_tpu_torch.ops import int8_root_cuda as R
 
     for counts in (K.LAUNCHES, K.PATH_LAUNCHES, K.EPILOGUE_LAUNCHES,
@@ -4324,9 +4326,9 @@ def phase_gauntlet(torch, np, dev, K, smpl_cuda, card):
 
 def root_counts(K, R):
     """The launch counts phase 20 holds to models.resnet_int8.plan_launches:
-    the stem and the pool, K2's units, the standalone pre-activations, the
-    convs by epilogue and every pre-activation by mode."""
-    return {"root": R.LAUNCHES[R.ROOT], "pool": R.LAUNCHES[R.POOL],
+    the fused stem and pool, K2's units, the standalone pre-activations,
+    the convs by epilogue and every pre-activation by mode."""
+    return {"root_pool": R.LAUNCHES[R.STEM_POOL],
             "block": K.LAUNCHES[K.BLOCK], "preact": K.LAUNCHES[K.PREACT],
             "conv": {e: K.EPILOGUE_LAUNCHES[e]
                      for e in ("dequant", "requant", "stream")},
@@ -4347,17 +4349,27 @@ def check_root_counts(K, R, plan, what):
     return got
 
 
-def stem_bound(args, kw):
-    """(bound ms, by, ops, bytes) of one stem call: the contraction over
-    the fold's K (2 ops a multiply-add) at the int8 rate; the frames, the
-    weights and the epilogue operands read once, the int8 map written."""
+def stem_pool_bound(args, kw):
+    """(bound ms, by, ops, bytes) of one fused stem + pool call: the stem's
+    7x7x3 taps (2 ops a multiply-add; the folds' further K slots hold zero
+    weights and are not the function's work) at the int8 rate; the frames,
+    the weights, the epilogue operands, the border map's entries at the
+    border (all the function reads of it) and the pre-activation's
+    operands read once, the pooled map written once."""
     from human_dynamics_tpu_torch.ops import int8_root_cuda as R
 
     x, wt, mul, add = args
-    ho, wo = R.root_geometry(x.shape[1], x.shape[2], kw["fold"])
-    m = x.shape[0] * ho * wo
-    ops = 2 * m * wt.shape[0] * wt.shape[1]
-    b = nbytes(x, wt, mul, add) + m * wt.shape[0]
+    h, w = x.shape[1], x.shape[2]
+    ho, wo = R.root_geometry(h, w, kw["fold"])
+    po, qo = R.same_pool_geometry(ho)[0], R.same_pool_geometry(wo)[0]
+    ops = 2 * x.shape[0] * ho * wo * wt.shape[0] * STEM_TAPS
+    b = nbytes(x, wt, mul, add) + x.shape[0] * po * qo * wt.shape[0]
+    if kw.get("border") is not None:
+        border = R.border_mask(h, w, kw["fold"])
+        b += int(border.sum()) * wt.shape[0] * 4
+    pre = kw.get("preact")
+    if pre is not None:
+        b += nbytes(pre.pa, pre.pb, pre.s, pre.ds)
     return bound_ms(ops, INT8_OPS, b) + (ops, b)
 
 
@@ -4377,25 +4389,32 @@ def stream_conv_bound(torch, K, xq, wt, kw):
     return 2 * m * wt.shape[1] * cout, b
 
 
-def replay_root_calls(torch, K, R, calls, what):
+def replay_root_calls(torch, K, R, calls, what, preacts):
     """Every recorded call of phase 20's kernels, the kernel against its
-    plain version on the card: the stem's and the pool's int8 outputs, the
-    stream conv's int32 accumulators, int8 stream and fused pre-activation,
-    and the standalone mode-2 / mode-3 pre-activations, equal. Returns the
-    largest difference by kind (0 when equal)."""
-    err = {"root": 0.0, "pool": 0.0, "stream": 0.0, "preact_s8": 0.0}
+    plain version on the card: the fused stem + pool's int8 output in its
+    own mode and in each of modes -1, 2 and 3 (``preacts``: mode -> Preact
+    or None), the stream conv's int32 accumulators, int8 stream and fused
+    pre-activation, and the standalone mode-2 / mode-3 pre-activations,
+    equal. Returns the largest difference by kind (0 when equal) and the
+    number of calls replayed."""
+    err = {"root_pool": 0.0, "stream": 0.0, "preact_s8": 0.0}
     n = {k: 0 for k in err}
     with torch.no_grad():
         for name, args, kw in calls:
-            if name == "root_stem":
-                got = R.root_stem(*args, **kw)
-                want = R.root_stem_reference(*args, **kw)
-                key = "root"
-            elif name == "max_pool_s8":
-                got = R.max_pool_s8(*args, **kw)
-                want = R.max_pool_s8_reference(*args, **kw)
-                key = "pool"
-            elif name == "preact_quant" and kw.get("mode") in (2, 3):
+            if name == "root_stem_pool":
+                for pre in [kw.get("preact")] + list(preacts.values()):
+                    kw_ = dict(kw, preact=pre)
+                    got = R.root_stem_pool(*args, **kw_)
+                    want = R.root_stem_pool_reference(*args, **kw_)
+                    check(torch.equal(got, want), f"{what}: root_stem_pool "
+                          f"({kw['fold']}, {kw['kind']}, mode "
+                          f"{pre.mode if pre else -1}) differs from its "
+                          f"plain version")
+                    err["root_pool"] = max(err["root_pool"],
+                                           max_abs(got, want))
+                    n["root_pool"] += 1
+                continue
+            if name == "preact_quant" and kw.get("mode") in (2, 3):
                 got = K.preact_quant(*args, **kw)
                 want = K.preact_quant_reference(*args, **kw)
                 key = "preact_s8"
@@ -4421,8 +4440,9 @@ def replay_root_calls(torch, K, R, calls, what):
             check(torch.equal(got, want),
                   f"{what}: {name} differs from its plain version")
             err[key] = max(err[key], max_abs(got, want))
-    print(f"{what}: replayed {n} calls of the stem, the pool, the stream "
-          f"epilogue and the int8-input pre-activation: equal to their plain "
+    print(f"{what}: replayed {n} calls of the fused stem + pool (each "
+          f"recorded call also in modes -1, 2 and 3), the stream epilogue "
+          f"and the int8-input pre-activation: equal to their plain "
           f"versions (max abs {err})")
     return err, n
 
@@ -4474,9 +4494,8 @@ def phase_int8_root(torch, np, model, frames, calib, bench, smpl, kw, K,
         return float(torch.nn.functional.cosine_similarity(a, b, dim=1).min())
 
     # Every variant, counted against its plan; its calls recorded.
-    runs, totals = {}, {"root": 0, "pool": 0, "stream": 0, "mode2": 0}
-    names = ["root_stem", "max_pool_s8", "conv_s8", "preact_quant",
-             "fused_block_pq"]
+    runs, totals = {}, {"root_pool": 0, "stream": 0, "mode2": 0}
+    names = ["root_stem_pool", "conv_s8", "preact_quant", "fused_block_pq"]
     for name, opts, u8 in ROOT_RUNS:
         images = raw if u8 else x
         with torch.no_grad():
@@ -4488,8 +4507,7 @@ def phase_int8_root(torch, np, model, frames, calib, bench, smpl, kw, K,
                 phi = T.run_int8_static(plan, images)
                 torch.cuda.synchronize()
                 counts = check_root_counts(K, R, plan, f"int8 trunk {name}")
-        totals["root"] += counts["root"]
-        totals["pool"] += counts["pool"]
+        totals["root_pool"] += counts["root_pool"]
         totals["stream"] += counts["conv"]["stream"]
         totals["mode2"] += counts["preact_modes"][2]
         c_f, rel = cos(phi, phi_fp32), float((phi - base).norm() / base.norm())
@@ -4502,9 +4520,15 @@ def phase_int8_root(torch, np, model, frames, calib, bench, smpl, kw, K,
               and rel <= ROOT_REL, f"int8 trunk {name} is off")
         runs[name] = {"plan": plan, "calls": rec.calls, "images": images}
     calls = [c for r in runs.values() for c in r["calls"]]
-    err, replayed = replay_root_calls(torch, K, R, calls, "phase 20")
-    for key, want in (("root", 3), ("pool", 4), ("stream", 1),
-                      ("preact_s8", 1)):
+    preacts = {-1: None, 2: runs["s2d_stream_1"]["plan"]["pool_preact"],
+               3: runs["s2d"]["plan"]["pool_preact"]}
+    check(preacts[2].mode == 2 and preacts[3].mode == 3,
+          "phase 20: the plans' pool pre-activations are not modes 2 and 3")
+    err, replayed = replay_root_calls(torch, K, R, calls, "phase 20",
+                                      preacts)
+    # s2d, wfold, u8 and s2d_stream_1 record a fused call each, every one
+    # replayed in its own mode and in modes -1, 2 and 3.
+    for key, want in (("root_pool", 16), ("stream", 1), ("preact_s8", 1)):
         check(replayed[key] >= want, f"phase 20 replayed {replayed[key]} "
               f"{key} calls, want at least {want}")
 
@@ -4522,49 +4546,47 @@ def phase_int8_root(torch, np, model, frames, calib, bench, smpl, kw, K,
               f"max_pool_same + permute back {lib_pool_ms:.4f} ms, the "
               f"whole _root {lib_ms:.4f} ms (CUDA events, 10 runs)")
         stems = {}
-        for name in ("s2d", "wfold", "u8"):
+        for name in ("s2d", "wfold", "u8", "s2d_stream_1"):
             (_, args, kwargs), = [c for c in runs[name]["calls"]
-                                  if c[0] == "root_stem"]
-            k_ms, p_ms = in_turns(lambda: R.root_stem(*args, **kwargs),
-                                  lambda: R.root_stem_reference(*args,
-                                                                **kwargs))
-            b_ms, b_by, ops, b = stem_bound(args, kwargs)
+                                  if c[0] == "root_stem_pool"]
+            k_ms, p_ms = in_turns(
+                lambda: R.root_stem_pool(*args, **kwargs),
+                lambda: R.root_stem_pool_reference(*args, **kwargs))
+            b_ms, b_by, ops, b = stem_pool_bound(args, kwargs)
             stems[name] = (k_ms, p_ms, b_ms, b_by)
-            print(f"  stem {name} ({kwargs['fold']}, {kwargs['kind']} "
-                  f"frames, K {args[1].shape[1]}): kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            print(f"  stem + pool {name} ({kwargs['fold']}, {kwargs['kind']} "
+                  f"frames, K {args[1].shape[1]}, pre-activation mode "
+                  f"{kwargs['preact'].mode}): kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
                   f"{ops / 1e9:.2f} GOP, {b / 1e6:.1f} MB; "
-                  f"{ops / k_ms / 1e9:.1f} TOP/s); bf16 stem conv "
-                  f"{lib_conv_ms:.4f} ms")
+                  f"{ops / k_ms / 1e9:.1f} TOP/s of the stem's taps); the "
+                  f"bf16 _root {lib_ms:.4f} ms")
+        # No stem map in device memory: the call's peak allocation is its
+        # pooled output.
+        (_, args, kwargs), = [c for c in runs["u8"]["calls"]
+                              if c[0] == "root_stem_pool"]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pooled = R.root_stem_pool(*args, **kwargs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ho, wo = R.root_geometry(args[0].shape[1], args[0].shape[2],
+                                 kwargs["fold"])
+        stem_map = args[0].shape[0] * ho * wo * R.COUT
+        print(f"  stem + pool u8: {peak / 1e6:.1f} MB allocated at the peak "
+              f"of a call (its pooled output {pooled.numel() / 1e6:.1f} MB; "
+              f"the stem map it keeps on chip {stem_map / 1e6:.1f} MB)")
+        check(peak <= pooled.numel() + (1 << 20),
+              f"stem + pool allocated {peak} bytes, more than its output")
+        del pooled
         k_ms, p_ms, b_ms, b_by = stems["u8"]
-        out["root"] = {"max_abs_err": err["root"], "ms": k_ms,
-                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": lib_conv_ms, "launches": totals["root"],
-                       "s2d_ms": stems["s2d"][0], "wfold_ms": stems["wfold"][0]}
-        pools = {}
-        for name in ("u8", "s2d_stream_1"):
-            (_, args, kwargs), = [c for c in runs[name]["calls"]
-                                  if c[0] == "max_pool_s8"]
-            k_ms, p_ms = in_turns(lambda: R.max_pool_s8(*args, **kwargs),
-                                  lambda: R.max_pool_s8_reference(*args,
-                                                                  **kwargs))
-            y, pre = args[0], kwargs.get("preact")
-            n_out = (y.shape[0] * R.same_pool_geometry(y.shape[1])[0]
-                     * R.same_pool_geometry(y.shape[2])[0] * y.shape[3])
-            b = y.numel() + n_out
-            b += nbytes(pre.pa, pre.pb, pre.s, pre.ds) if pre else 0
-            b_ms, b_by = bound_ms(8 * n_out, FP32_OPS, b)
-            pools[name] = (k_ms, p_ms, b_ms, b_by, pre.mode if pre else None)
-            print(f"  pool {tuple(y.shape)} -> pre-activation mode "
-                  f"{pools[name][4]}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-                  f"{b / 1e6:.1f} MB); max_pool_same + permute on bf16 "
-                  f"{lib_pool_ms:.4f} ms")
-        k_ms, p_ms, b_ms, b_by, _ = pools["u8"]
-        out["pool"] = {"max_abs_err": err["pool"], "ms": k_ms,
-                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": lib_pool_ms, "launches": totals["pool"],
-                       "mode2_ms": pools["s2d_stream_1"][0]}
+        out["root_pool"] = {
+            "max_abs_err": err["root_pool"], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "launches": totals["root_pool"], "s2d_ms": stems["s2d"][0],
+            "wfold_ms": stems["wfold"][0],
+            "mode2_ms": stems["s2d_stream_1"][0]}
         # The stream epilogue: every stream conv of the all-blocks run.
         st = {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0, "n": 0}
         for name_, args, kwargs in runs["stream"]["calls"]:
@@ -4630,8 +4652,9 @@ def phase_int8_root(torch, np, model, frames, calib, bench, smpl, kw, K,
           f"{smpl_cuda.LAUNCHES[smpl_cuda.KERNEL_NAME]}")
     check(counts == want_counts and smpl_cuda.LAUNCHES[
         smpl_cuda.KERNEL_NAME] == 1, f"u8 clip launches: want {want_counts}")
-    out["root"]["clip_launches"] = counts["root"]
-    out["pool"]["clip_launches"] = counts["pool"]
+    out["root_pool"]["clip_launches"] = counts["root_pool"]
+    check(counts["root_pool"] == chunks, f"u8 clip: {counts['root_pool']} "
+          f"stem + pool launches for {chunks} encoder chunks")
     err = max_abs(got["omegas"], want_out["omegas"])
     print(f"predictor bench config + int8_root='u8' against the bench "
           f"config: omegas max abs diff {err:.4f} (tol {OMEGA_TOL})")
@@ -4659,12 +4682,26 @@ def phase_int8_root(torch, np, model, frames, calib, bench, smpl, kw, K,
     reset_all(K, smpl_cuda)
     emissions = feed_pieces(sp, frames, STREAM_PIECES)
     torch.cuda.synchronize()
-    check(R.LAUNCHES[R.ROOT] == R.LAUNCHES[R.POOL] == n_calls
+    check(R.LAUNCHES[R.STEM_POOL] == n_calls
           and len(emissions) == emits and K.LAUNCHES[K.PREACT] == 0,
           f"u8 stream: {R.LAUNCHES} for {n_calls} encoder calls, "
           f"{dict(K.LAUNCHES)}")
     check_stream(torch, "streaming bench config + int8_root='u8' (uint8 "
                  "pieces)", u8, emissions, got)
+    # Where each clip's time goes in this process: its kernels' device time
+    # and the device's idle share (a clip whose host is the slower side
+    # shows all of the host's time), and what else holds the host.
+    import threading
+
+    names = sorted(t.name for t in threading.enumerate())
+    print(f"phase 20's process: {len(names)} threads {names}, "
+          f"{torch.get_num_threads()} torch CPU threads")
+    out["clip_kernel_ms"] = {}
+    for name in order:
+        _, total = profile_run(
+            torch, f"predictor {name}, one clip",
+            lambda: preds[name].predict_all_images(frames, as_numpy=False))
+        out["clip_kernel_ms"][name] = total
     return out
 
 
@@ -5043,13 +5080,12 @@ def main():
              launches=counts[K.PREACT], **int8["preact"]),
         # Phase 20's kernels: launches over its six trunk chunks (each
         # counted against its plan), clip_launches in the bench config
-        # with int8_root="u8"; the stem's times are the u8 stem's.
-        dict(name=int8_root_cuda.ROOT, source=csrc + "int8_root.cu",
+        # with int8_root="u8"; the fused stem + pool's times are the u8
+        # stem's (mode 3), s2d_ms, wfold_ms and mode2_ms those of the
+        # other recorded calls.
+        dict(name=int8_root_cuda.STEM_POOL, source=csrc + "int8_root.cu",
              replaces="human_dynamics_tpu/models/resnet_int8.py:371",
-             **ir["root"]),
-        dict(name=int8_root_cuda.POOL, source=csrc + "int8_root.cu",
-             replaces="human_dynamics_tpu/models/resnet_int8.py:459",
-             **ir["pool"]),
+             **ir["root_pool"]),
         dict(name="resnet_int8_conv_stream", source=csrc + "resnet_int8.cu",
              replaces="human_dynamics_tpu/models/resnet_int8.py:633",
              **ir["stream"]),

@@ -20,7 +20,7 @@ the XLA path:
   ("wfold", ``root/wq_wfold``), or that conv on raw uint8 frames as u ^
   0x80 with an exact border-correction map in the bias ("u8"); its epilogue
   requantises to int8 with ``root/out``'s scale, and the max pool runs on
-  int8 (``ops.int8_root_cuda``).
+  int8, in the same kernel (``ops.int8_root_cuda.root_stem_pool``).
 - ``int8_stream`` (static scales; True or a tuple of blocks) carries the
   residual stream of those blocks as int8 with per-unit ``out`` scales:
   a quantise or dequantise pass at block boundaries, the pre-activation
@@ -47,7 +47,7 @@ the XLA path:
 
 Tensors are NHWC and weights HWIO, with the JAX key names
 ('block1/unit_1/bottleneck_v2/conv1/wq', ...). The convs run through
-``ops.resnet_int8_cuda`` and the int8 stems and pool through
+``ops.resnet_int8_cuda`` and the int8 stem and pool through
 ``ops.int8_root_cuda``: the CUDA kernels for CUDA tensors, the plain
 versions on the CPU.
 """
@@ -66,9 +66,9 @@ from human_dynamics_tpu_torch.models.resnet import (
     max_pool_same,
 )
 from human_dynamics_tpu_torch.ops.int8_root_cuda import (
-    max_pool_s8,
+    border_mask,
     root_conv_reference,
-    root_stem,
+    root_stem_pool,
 )
 from human_dynamics_tpu_torch.ops.resnet_int8_cuda import (
     Preact,
@@ -427,28 +427,44 @@ def _root_plan(qp, scales, int8_root):
     }
 
 
-def _root_add(root, h: int, w: int) -> torch.Tensor:
-    """The stem epilogue's add: per channel, or for "u8" the map
-    fma(ones_conv, w_scale / 255, bias) / s_root of an h x w frame, where
+def _root_add(root, h: int, w: int):
+    """The stem epilogue's (add, border) on h x w frames: the per-channel
+    add and no border map, or for "u8" the per-channel add of the interior
+    and the map fma(ones_conv, w_scale / 255, bias) / s_root, where
     ones_conv is the stem's contraction of an all-ones int8 image (the
     weights' sum over the taps inside the frame: exact at every border).
-    Made once per frame size, by the plain contraction."""
+    The kernel reads the map only where the tap window leaves the frame
+    (``border_mask``), so every other entry must equal the interior add,
+    fma(sum of the weights, w_scale / 255, bias) / s_root, bit for bit;
+    anything else raises. Made once per frame size, by the plain
+    contraction."""
     if not root["u8"]:
-        return root["add"]
+        return root["add"], None
     key = (h, w)
     if key not in root["maps"]:
         wt = root["wt"]
         ones = torch.ones((1, h, w, 3), dtype=torch.int8, device=wt.device)
         acc = root_conv_reference(ones, wt, root["fold"])[0]
-        root["maps"][key] = (fma_reference(acc.float(), root["k255"],
-                                           root["b32"])
-                             / root["s_root"]).contiguous()
+        bias = lambda a: (fma_reference(a.float(), root["k255"], root["b32"])
+                          / root["s_root"]).contiguous()
+        border, add = bias(acc), bias(wt.sum(dim=1, dtype=torch.int32))
+        inner = ~border_mask(h, w, root["fold"], device=wt.device)
+        bits = border.view(torch.int32)[inner]
+        if not torch.equal(bits, add.view(torch.int32).expand_as(bits)):
+            raise RuntimeError(
+                f"the u8 stem's border map on {h}x{w} frames differs from "
+                f"the interior add away from the border: the kernel, which "
+                f"reads the map only at the border, would not compute it")
+        root["maps"][key] = (add, border)
     return root["maps"][key]
 
 
-def _run_stem(root, images: torch.Tensor) -> torch.Tensor:
-    """The int8 stem on (N, H, W, 3) frames: uint8 frames only for "u8"
-    (as bytes), any other frames as float32 in [-1, 1]."""
+def _run_stem(root, images: torch.Tensor,
+              preact: Optional[Preact] = None) -> torch.Tensor:
+    """The int8 stem and max pool on (N, H, W, 3) frames, one launch:
+    uint8 frames only for "u8" (as bytes), any other frames as float32 in
+    [-1, 1]. With ``preact`` it returns the first unit's pre-activation of
+    the pooled map instead of the map."""
     if images.dtype == torch.uint8:
         if not root["u8"]:
             raise ValueError("uint8 frames need int8_root='u8'; normalise "
@@ -458,9 +474,10 @@ def _run_stem(root, images: torch.Tensor) -> torch.Tensor:
         images = images.to(torch.float32)
         kind = "u8_float" if root["u8"] else "f32"
     images = images.contiguous()
-    add = _root_add(root, images.shape[1], images.shape[2])
-    return root_stem(images, root["wt"], root["mul"], add, fold=root["fold"],
-                     kind=kind)
+    add, border = _root_add(root, images.shape[1], images.shape[2])
+    return root_stem_pool(images, root["wt"], root["mul"], add,
+                          fold=root["fold"], kind=kind, preact=preact,
+                          border=border)
 
 
 @torch.no_grad()
@@ -557,16 +574,17 @@ def prepare_int8_static(qp: Dict[str, torch.Tensor],
 
 def plan_launches(plan: Dict) -> Dict:
     """The kernel launches of one ``run_int8_static`` call on CUDA tensors,
-    from the plan alone: "root" and "pool" (the int8 stem's two kernels),
+    from the plan alone: "root_pool" (the int8 stem and pool, one kernel),
     "block" (K2, one per unit), "conv" by epilogue, "preact" (standalone
     pre-activation passes) and "preact_modes", every pre-activation
-    computed by mode, standalone or fused into the conv, K2 or the pool
-    that made its input (K2's own per-unit pre-activations not counted)."""
+    computed by mode, standalone or fused into the conv, K2 or the stem's
+    pool that made its input (K2's own per-unit pre-activations not
+    counted)."""
     epilogues = {"dequant": 0, "requant": 0, "stream": 0}
     modes = {m: 0 for m in (0, 1, 2, 3)}
-    n = {"root": 0, "pool": 0, "block": 0, "preact": 0}
+    n = {"root_pool": 0, "block": 0, "preact": 0}
     if plan["root"] is not None:
-        n["root"] = n["pool"] = 1
+        n["root_pool"] = 1
         if plan["pool_preact"] is not None:
             modes[plan["pool_preact"].mode] += 1
     for u in plan["steps"]:
@@ -641,11 +659,11 @@ def run_int8_static(plan: Dict, images: torch.Tensor) -> torch.Tensor:
     if plan["root"] is None:
         x = _root(plan["head"], images)
     else:
-        y = _run_stem(plan["root"], images)
+        pooled = _run_stem(plan["root"], images, plan["pool_preact"])
         if plan["pool_preact"] is not None:
-            x, pq = None, max_pool_s8(y, preact=plan["pool_preact"])
+            x, pq = None, pooled
         else:
-            x = max_pool_s8(y)
+            x = pooled
     for u in plan["steps"]:
         enter = u["enter"]
         if enter is not None and enter[0] == "quantise":

@@ -1,30 +1,32 @@
-"""The int8 root stems and the int8 max pool of the static-scale int8 trunk,
-with their plain versions.
+"""The int8 root stem and the int8 max pool of the static-scale int8 trunk,
+fused into one kernel, with its plain version.
 
-Counterpart of the ``int8_root`` stems of
-``human_dynamics_tpu/models/resnet_int8.py`` (``apply_int8``, :371-463),
+Counterpart of the ``int8_root`` stems and the max pool of
+``human_dynamics_tpu/models/resnet_int8.py`` (``apply_int8``, :371-462),
 which XLA runs as integer convolutions and a ``reduce_window``. The CUDA
-source is ``csrc/int8_root.cu``:
+source is ``csrc/int8_root.cu``; ``root_stem_pool`` launches it:
 
-- ``root_stem``: NHWC frames -> the root conv's int8 output, requantised
-  with ``root/out``'s scale. The input transform is done on load: f32
-  frames in [-1, 1] as clip(rint(x*127), -127, 127) (``int8_root`` True and
-  "wfold"), raw uint8 frames as u ^ 0x80 and f32 frames snapped back to
-  the 255-grid as clip(rint(x*127.5 + 127.5), 0, 255) - 128 (``"u8"``).
-  The contraction is the space-to-depth 4x4/1 conv (``fold="s2d"``, K =
-  192, ``_s2d_root_weights``) or the width-folded (7, 4)/(2, 1) conv
-  (``fold="wfold"``, K = 168, ``_wfold_root_weights``) over views that the
-  kernel never builds: each K index maps to an input pixel by index
-  arithmetic (``root_taps``). The epilogue is clip(rint(fma(y, mul, add)),
-  -127, 127), with ``add`` per channel, or per (row, column, channel) for
-  the "u8" stem's border-correction map.
-- ``max_pool_s8``: the 3x3/2 XLA "SAME" max pool over int8 (the odd pad at
-  the end, pad value -128); with a ``Preact`` of mode 2 or 3 it writes the
-  trunk's first pre-activation of the pooled map instead of the map (the
-  first unit's shortcut is a projection, so nothing else reads it).
+- the stem: NHWC frames -> the root conv's int8 output, requantised with
+  ``root/out``'s scale. The input transform is done on the way into the
+  kernel's shared memory: f32 frames in [-1, 1] as clip(rint(x*127), -127,
+  127) (``int8_root`` True and "wfold"), raw uint8 frames as u ^ 0x80 and
+  f32 frames snapped back to the 255-grid as clip(rint(x*127.5 + 127.5), 0,
+  255) - 128 (``"u8"``). The contraction is the space-to-depth 4x4/1 conv
+  (``fold="s2d"``, K = 192, ``_s2d_root_weights``) or the width-folded
+  (7, 4)/(2, 1) conv (``fold="wfold"``, K = 168, ``_wfold_root_weights``)
+  over views that the kernel never builds: each K index maps to an input
+  pixel by index arithmetic (``root_taps``). The epilogue is
+  clip(rint(fma(y, mul, add)), -127, 127), with ``add`` per channel, and
+  for the "u8" stem a ``border`` map at the pixels whose tap window leaves
+  the frame (``border_mask``).
+- the pool: the 3x3/2 XLA "SAME" max pool over the stem's int8 map (the odd
+  pad at the end, pad value -128); with a ``Preact`` of mode 2 or 3 the
+  kernel writes the trunk's first pre-activation of the pooled map instead
+  of the map (the first unit's shortcut is a projection, so nothing else
+  reads it). The stem's map stays in the kernel's shared memory.
 
 Which version runs is decided by the device of the tensors: CUDA tensors
-launch the kernels, CPU tensors run the plain versions. A failed build or
+launch the kernel, CPU tensors run the plain version. A failed build or
 launch raises; nothing falls back.
 """
 
@@ -45,11 +47,10 @@ from human_dynamics_tpu_torch.ops.resnet_int8_cuda import (
 )
 
 KERNEL_NAME = "int8_root"
-ROOT = "resnet_int8_root"
-POOL = "resnet_int8_pool"
+STEM_POOL = "resnet_int8_root_pool"
 
 # Kernel launches by wrapper (chip_smoke.py resets and reads them).
-LAUNCHES = {ROOT: 0, POOL: 0}
+LAUNCHES = {STEM_POOL: 0}
 
 # Fold and input codes of csrc/int8_root.cu.
 FOLDS = {"s2d": 0, "wfold": 1}
@@ -94,6 +95,20 @@ def root_geometry(h: int, w: int, fold: str) -> Tuple[int, int]:
     return ho, w // 2
 
 
+def border_mask(h: int, w: int, fold: str,
+                device=None) -> torch.Tensor:
+    """(Ho, Wo) bool: the stem pixels (oy, ox) whose 8 x 8 tap window, input
+    rows 2*oy - 4 .. 2*oy + 3 and columns 2*ox - 4 .. 2*ox + 3 (``root_taps``'
+    offsets, both folds), leaves the h x w frame. Everywhere else the "u8"
+    stem's border-correction map is the per-channel weight sum's."""
+    ho, wo = root_geometry(h, w, fold)
+    oy = torch.arange(ho, device=device)
+    ox = torch.arange(wo, device=device)
+    rows = (oy < 2) | (2 * oy + 3 >= h)
+    cols = (ox < 2) | (2 * ox + 3 >= w)
+    return rows[:, None] | cols[None, :]
+
+
 def root_input_reference(x: torch.Tensor, kind: str) -> torch.Tensor:
     """The int8 image the stem contracts, from the frames (plain version of
     the kernel's transform on load)."""
@@ -135,7 +150,9 @@ def _epilogue(acc, mul, add):
 def root_stem_reference(x: torch.Tensor, wt: torch.Tensor, mul: torch.Tensor,
                         add: torch.Tensor, *, fold: str,
                         kind: str) -> torch.Tensor:
-    """Plain version of ``root_stem``."""
+    """The stem alone, in plain PyTorch: (N, H, W, 3) frames -> (N, Ho, Wo,
+    64) int8, out = clip(rint(fma(y, mul, add)), -127, 127) with y the int32
+    contraction and add (64,) or a (Ho, Wo, 64) map."""
     _check_root(x, wt, mul, add, fold, kind)
     return _epilogue(root_conv_reference(root_input_reference(x, kind), wt,
                                          fold), mul, add)
@@ -165,70 +182,6 @@ def _check_root(x, wt, mul, add, fold, kind):
     return ho, wo
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_library() -> ctypes.CDLL:
-    """The built library, with its C signatures declared."""
-    from human_dynamics_tpu_torch.ops._build import load_kernel_library
-
-    lib = load_kernel_library(KERNEL_NAME).lib
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.int8_root_launch.argtypes = ([ptr, i32, ptr, ptr, ptr, ptr]
-                                     + [i32] * 7 + [ptr])
-    lib.int8_root_launch.restype = i32
-    lib.int8_pool_launch.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
-    lib.int8_pool_launch.restype = i32
-    lib.int8_root_error_string.argtypes = [i32]
-    lib.int8_root_error_string.restype = ctypes.c_char_p
-    lib.int8_root_layout.argtypes = [i32]
-    lib.int8_root_layout.restype = i32
-    layout = tuple(lib.int8_root_layout(i) for i in range(6))
-    want = tuple(FOLDS.values()) + tuple(INPUTS.values()) + (COUT,)
-    if layout != want:
-        raise RuntimeError(f"{KERNEL_NAME} was built with codes {layout}, "
-                           f"the wrapper expects {want}")
-    return lib
-
-
-def _launch(what, fn, *args):
-    lib = _kernel_library()
-    dev = args[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, fn)(*[a.data_ptr() if isinstance(a, torch.Tensor)
-                                  else a for a in args], stream)
-    if code != 0:
-        msg = lib.int8_root_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({code})")
-    LAUNCHES[what] += 1
-
-
-def _root_cuda(x, wt, mul, add, fold, kind):
-    ho, wo = _check_root(x, wt, mul, add, fold, kind)
-    n, h, w, _ = x.shape
-    out = torch.empty((n, ho, wo, COUT), dtype=torch.int8, device=x.device)
-    _K._check_cuda_layout((wt, out, mul, add), (x,))
-    _launch(ROOT, "int8_root_launch", x, INPUTS[kind], wt, out, mul, add,
-            int(add.dim() == 3), n, h, w, ho, wo, FOLDS[fold])
-    return out
-
-
-def root_stem(x: torch.Tensor, wt: torch.Tensor, mul: torch.Tensor,
-              add: torch.Tensor, *, fold: str, kind: str) -> torch.Tensor:
-    """The int8 root stem: (N, H, W, 3) frames -> (N, Ho, Wo, 64) int8.
-
-    x: f32 frames in [-1, 1] (``kind`` "f32": the s2d and wfold stems;
-    "u8_float": the "u8" stem on float frames) or uint8 frames (``kind``
-    "u8"). wt: the fold's k-major int8 weights (64, K), K = 192 for
-    ``fold`` "s2d" and 168 for "wfold". mul (64,) and add (64,) or (Ho,
-    Wo, 64) float32: out = clip(rint(fma(y, mul, add)), -127, 127) with y
-    the int32 contraction (XLA contracts the multiply-add on the CPU).
-    """
-    tensors = [x, wt, mul, add]
-    if _K._device_of(tensors, "root_stem") == "cpu":
-        return root_stem_reference(x, wt, mul, add, fold=fold, kind=kind)
-    return _root_cuda(x, wt, mul, add, fold, kind)
-
-
 def same_pool_geometry(size: int, window: int = 3,
                        stride: int = 2) -> Tuple[int, int, int]:
     """(output size, leading pad, trailing pad) of XLA's "SAME" window: the
@@ -241,18 +194,27 @@ def same_pool_geometry(size: int, window: int = 3,
 
 def _check_pool(x, preact):
     if x.dim() != 4 or x.dtype != torch.int8:
-        raise ValueError(f"max_pool_s8 takes (N, H, W, C) int8, got "
+        raise ValueError(f"the int8 pool takes (N, H, W, C) int8, got "
                          f"{tuple(x.shape)} {x.dtype}")
+    _check_preact(x.shape[-1], preact)
+
+
+def _check_preact(c, preact):
     if preact is not None:
         if preact.mode not in (2, 3):
             raise ValueError(f"the pool's pre-activation reads int8: mode 2 "
                              f"or 3, not {preact.mode}")
-        _K._check_preact_operands(x.shape[-1], *preact)
+        _K._check_preact_operands(c, *preact)
 
 
 def max_pool_s8_reference(x: torch.Tensor,
                           preact: Optional[Preact] = None) -> torch.Tensor:
-    """Plain version of ``max_pool_s8``."""
+    """3x3/2 "SAME" max pool over an int8 map (N, H, W, C), pad value -128
+    (``resnet_int8.py:459-462``; exact on int8: the max commutes with the
+    positive scale), in plain PyTorch. With ``preact`` (mode 2: the pooled
+    map is the int8 stream; mode 3: it is dequantised to bf16 first, as at
+    an int8 -> bf16 block boundary) it returns the int8 pre-activation of
+    the pooled map instead of the map."""
     _check_pool(x, preact)
     _, lo_h, hi_h = same_pool_geometry(x.shape[1])
     _, lo_w, hi_w = same_pool_geometry(x.shape[2])
@@ -265,34 +227,121 @@ def max_pool_s8_reference(x: torch.Tensor,
                                   ds=preact.ds)
 
 
-def _pool_cuda(x, preact):
-    _check_pool(x, preact)
-    n, h, w, c = x.shape
-    if c % 16:
-        raise ValueError(f"the pool kernel takes C % 16 == 0, got {c}")
-    ho, lo_h, _ = same_pool_geometry(h)
-    wo, lo_w, _ = same_pool_geometry(w)
-    out = torch.empty((n, ho, wo, c), dtype=torch.int8, device=x.device)
+def _check_stem_pool(x, wt, mul, add, border, fold, kind, preact):
+    ho, wo = _check_root(x, wt, mul, add, fold, kind)
+    if tuple(add.shape) != (COUT,):
+        raise ValueError(f"add must be ({COUT},) float32: the interior's "
+                         f"per-channel add (a map goes in border)")
+    if border is not None and (tuple(border.shape) != (ho, wo, COUT)
+                               or border.dtype != torch.float32):
+        raise ValueError(f"border must be ({ho}, {wo}, {COUT}) float32, got "
+                         f"{tuple(border.shape)} {border.dtype}")
+    _check_preact(COUT, preact)
+    return ho, wo
+
+
+def stem_add_map(add: torch.Tensor, border: torch.Tensor, h: int, w: int,
+                 fold: str) -> torch.Tensor:
+    """The per-pixel add ``root_stem_pool`` applies: ``border`` where the
+    tap window leaves the h x w frame (``border_mask``), ``add`` elsewhere;
+    (Ho, Wo, 64)."""
+    mask = border_mask(h, w, fold, device=border.device)
+    return torch.where(mask[..., None], border, add).contiguous()
+
+
+def root_stem_pool_reference(x: torch.Tensor, wt: torch.Tensor,
+                             mul: torch.Tensor, add: torch.Tensor, *,
+                             fold: str, kind: str,
+                             preact: Optional[Preact] = None,
+                             border: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Plain version of ``root_stem_pool``: ``max_pool_s8_reference`` of
+    ``root_stem_reference``."""
+    _check_stem_pool(x, wt, mul, add, border, fold, kind, preact)
+    if border is not None:
+        add = stem_add_map(add, border, x.shape[1], x.shape[2], fold)
+    return max_pool_s8_reference(
+        root_stem_reference(x, wt, mul, add, fold=fold, kind=kind), preact)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_library() -> ctypes.CDLL:
+    """The built library, with its C signatures declared."""
+    from human_dynamics_tpu_torch.ops._build import load_kernel_library
+
+    lib = load_kernel_library(KERNEL_NAME).lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.int8_root_pool_launch.argtypes = ([ptr, i32] + [ptr] * 9
+                                          + [i32] * 7 + [ptr])
+    lib.int8_root_pool_launch.restype = i32
+    lib.int8_root_error_string.argtypes = [i32]
+    lib.int8_root_error_string.restype = ctypes.c_char_p
+    lib.int8_root_layout.argtypes = [i32]
+    lib.int8_root_layout.restype = i32
+    layout = tuple(lib.int8_root_layout(i) for i in range(6))
+    want = tuple(FOLDS.values()) + tuple(INPUTS.values()) + (COUT,)
+    if layout != want:
+        raise RuntimeError(f"{KERNEL_NAME} was built with codes {layout}, "
+                           f"the wrapper expects {want}")
+    return lib
+
+
+def _aligned16(t):
+    """t, or a copy of it when it does not start on 16 bytes (a contiguous
+    slice of frames can start anywhere): the kernel reads it by 16-byte
+    cp.async from 16-byte aligned addresses."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _stem_pool_cuda(x, wt, mul, add, fold, kind, preact, border):
+    ho, wo = _check_stem_pool(x, wt, mul, add, border, fold, kind, preact)
+    x, border = _aligned16(x), _aligned16(border)
+    n, h, w, _ = x.shape
+    po, qo = same_pool_geometry(ho)[0], same_pool_geometry(wo)[0]
+    out = torch.empty((n, po, qo, COUT), dtype=torch.int8, device=x.device)
     pre = preact if preact is not None else Preact(None, None, None, -1)
-    _K._check_cuda_layout(_K._operands(x, out, pre.pa, pre.pb),
-                          _K._operands(pre.s, pre.ds))
-    _launch(POOL, "int8_pool_launch", x, out, _K._ptr(pre.pa),
+    _K._check_cuda_layout(_K._operands(x, out, border),
+                          _K._operands(wt, mul, add, pre.pa, pre.pb, pre.s,
+                                       pre.ds))
+    lib = _kernel_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.int8_root_pool_launch(
+            x.data_ptr(), INPUTS[kind], wt.data_ptr(), out.data_ptr(),
+            mul.data_ptr(), add.data_ptr(), _K._ptr(border), _K._ptr(pre.pa),
             _K._ptr(pre.pb), _K._ptr(pre.s), _K._ptr(pre.ds), pre.mode, n, h,
-            w, c, ho, wo, lo_h, lo_w)
+            w, po, qo, FOLDS[fold], stream)
+    if code != 0:
+        msg = lib.int8_root_error_string(code).decode()
+        raise RuntimeError(f"{STEM_POOL} launch failed: {msg} ({code})")
+    LAUNCHES[STEM_POOL] += 1
     _K._count_preact(preact)
     return out
 
 
-def max_pool_s8(x: torch.Tensor,
-                preact: Optional[Preact] = None) -> torch.Tensor:
-    """3x3/2 "SAME" max pool over an int8 map (N, H, W, C), pad value -128
-    (``resnet_int8.py:459-462``; exact on int8: the max commutes with the
-    positive scale). With ``preact`` (mode 2: the pooled map is the int8
-    stream; mode 3: it is dequantised to bf16 first, as at an int8 -> bf16
-    block boundary) it returns the int8 pre-activation of the pooled map
-    instead of the map."""
+def root_stem_pool(x: torch.Tensor, wt: torch.Tensor, mul: torch.Tensor,
+                   add: torch.Tensor, *, fold: str, kind: str,
+                   preact: Optional[Preact] = None,
+                   border: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8 root stem and its 3x3/2 "SAME" max pool in one launch:
+    (N, H, W, 3) frames -> (N, ceil(Ho/2), ceil(Wo/2), 64) int8.
+
+    x: f32 frames in [-1, 1] (``kind`` "f32": the s2d and wfold stems;
+    "u8_float": the "u8" stem on float frames) or uint8 frames (``kind``
+    "u8"). wt: the fold's k-major int8 weights (64, K), K = 192 for
+    ``fold`` "s2d" and 168 for "wfold". mul and add (64,) float32: the stem
+    is clip(rint(fma(y, mul, add)), -127, 127) with y the int32 contraction
+    (XLA contracts the multiply-add on the CPU). ``border`` (Ho, Wo, 64)
+    float32, or None: the add of the pixels whose tap window leaves the
+    frame (``border_mask``; the "u8" stem's border-correction map), read
+    only there. ``preact`` (mode 2 or 3): the pooled map's pre-activation
+    is returned instead of the map.
+    """
     pre = preact if preact is not None else Preact(None, None, None, 0)
-    tensors = _K._operands(x, pre.pa, pre.pb, pre.s, pre.ds)
-    if _K._device_of(tensors, "max_pool_s8") == "cpu":
-        return max_pool_s8_reference(x, preact)
-    return _pool_cuda(x, preact)
+    tensors = _K._operands(x, wt, mul, add, border, pre.pa, pre.pb, pre.s,
+                           pre.ds)
+    if _K._device_of(tensors, "root_stem_pool") == "cpu":
+        return root_stem_pool_reference(x, wt, mul, add, fold=fold,
+                                        kind=kind, preact=preact,
+                                        border=border)
+    return _stem_pool_cuda(x, wt, mul, add, fold, kind, preact, border)

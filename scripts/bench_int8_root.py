@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phase 20 alone: the int8 root stems and the int8
-residual stream, every new kernel against its plain version and timed, and
-the bench predictor with int8_root="u8".
+"""chip_smoke.py's phase 20 alone: the int8 root stems (the stem and the
+max pool in one kernel) and the int8 residual stream, every kernel against
+its plain version and timed, and the bench predictor with int8_root="u8".
 
     python3 scripts/bench_int8_root.py [--ptxas]
 
@@ -10,7 +10,12 @@ source, started together), makes the full-width model, the 480-frame
 uint8 clip, the calibration frames and the bench-config predictor as
 chip_smoke.py's main does (seeded weights and frames), and runs
 ``chip_smoke.phase_int8_root``. ``--ptxas`` first prints nvcc's register,
-shared-memory and spill report of csrc/int8_root.cu and csrc/resnet_int8.cu.
+shared-memory and spill report of csrc/int8_root.cu and csrc/resnet_int8.cu,
+then, for every input kind and fold of the fused stem + pool at 224x224 and
+at 224x320 (column bands), with the mode-3 pre-activation and, for the u8
+kinds, the border map, the dynamic shared memory its launcher asks for,
+the blocks an SM holds with it, and its registers and spilled bytes a thread
+as the loaded library reports them.
 """
 
 import os
@@ -33,6 +38,30 @@ def ptxas_report(name):
     print(out.stdout + out.stderr)
     if out.returncode != 0:
         raise SystemExit(f"nvcc failed ({out.returncode})")
+
+
+def fit_report():
+    import ctypes
+
+    from human_dynamics_tpu_torch.ops import int8_root_cuda as R
+
+    lib = R._kernel_library()
+    lib.int8_root_pool_fit.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.int8_root_pool_fit.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    for h, w in ((224, 224), (224, 320)):
+        for kind, code in R.INPUTS.items():
+            for fold, f in R.FOLDS.items():
+                # As the trunk calls it: the mode-3 pre-activation, and
+                # the "u8" stem's border map for the u8 kinds.
+                rc = lib.int8_root_pool_fit(code, f, h, w, 3, kind != "f32",
+                                            out)
+                if rc != 0:
+                    msg = lib.int8_root_error_string(rc).decode()
+                    raise SystemExit(f"int8_root_pool_fit: {msg} ({rc})")
+                print(f"stem + pool {kind} {fold} {h}x{w}: {out[0]} bytes of "
+                      f"dynamic shared memory, {out[1]} blocks an SM, "
+                      f"{out[2]} registers and {out[3]} local bytes a thread")
 
 
 def main():
@@ -61,6 +90,8 @@ def main():
     S.build_all(load_kernel_libraries, [smpl_cuda.KERNEL_NAME, K.KERNEL_NAME,
                                         K.K2_KERNEL_NAME,
                                         int8_root_cuda.KERNEL_NAME])
+    if "--ptxas" in sys.argv[1:]:
+        fit_report()
     dev = torch.device("cuda", 0)
     smpl = synthetic_smpl_model(num_verts=S.SMPL_VERTS, num_kps=S.SMPL_KPS,
                                 device=dev)

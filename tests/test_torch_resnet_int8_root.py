@@ -1,7 +1,8 @@
 """The port's int8 root stems and int8 residual stream (``int8_root``,
-``int8_stream`` of models/resnet_int8; ops/int8_root_cuda; the "stream"
-epilogue and pre-activation modes 2 and 3 of ops/resnet_int8_cuda) against
-the JAX package's, and the CUDA kernels against their plain versions.
+``int8_stream`` of models/resnet_int8; ops/int8_root_cuda, the stem fused
+with the max pool; the "stream" epilogue and pre-activation modes 2 and 3
+of ops/resnet_int8_cuda) against the JAX package's, and the CUDA kernels
+against their plain versions.
 
 The JAX side is the ``trunk`` of tests/test_torch_resnet_int8.py: a
 full-width ResNet-50 v2 at 2x64x64, seed 5, randomised BN statistics, its
@@ -40,6 +41,8 @@ from human_dynamics_tpu_torch.utils.weights import (
 torch.set_num_threads(1)
 
 # (name, apply_int8_static options, uint8 frames): the trunk cases.
+PRE1 = "block1/unit_1/bottleneck_v2/"
+
 TRUNK_CASES = [
     ("s2d", dict(int8_root=True), False),
     ("wfold", dict(int8_root="wfold"), False),
@@ -190,9 +193,12 @@ def test_root_conv_reference_matches_view_conv(trunk, fold, h, w):
     np.testing.assert_array_equal(got.numpy(), np.asarray(lax))
 
 
-def _jax_stem(J, jax, jnp, qp, s_root, images, int8_root):
-    """The int8 stem of J.apply_int8 (resnet_int8.py:379-458), jitted."""
-    def stem(qp, s_root, images):
+def _jax_stem(J, jax, jnp, qp, s_root, s_p, images, int8_root):
+    """The int8 stem of J.apply_int8 (resnet_int8.py:379-458) and block 1
+    unit 1's pre-activation of the pooled map, dequantised to bf16 (mode 3,
+    :540-542 then :578-589) and from the int8 stream (mode 2, :565-576),
+    jitted."""
+    def stem(qp, s_root, s_p, images):
         if int8_root == "u8":
             if images.dtype == jnp.uint8:
                 q = jax.lax.bitcast_convert_type(images ^ jnp.uint8(128),
@@ -234,36 +240,63 @@ def _jax_stem(J, jax, jnp, qp, s_root, images, int8_root):
             jnp.int8)
         pooled = jax.lax.reduce_window(yq, jnp.int8(-128), jax.lax.max,
                                        (1, 3, 3, 1), (1, 2, 2, 1), "SAME")
-        return yq, pooled
-    return [np.asarray(t) for t in jax.jit(stem)(qp, s_root, images)]
+        A = qp[PRE1 + "preact/A"]
+        B = qp[PRE1 + "preact/B"]
+        xb = pooled.astype(jnp.bfloat16) * s_root.astype(jnp.bfloat16)
+        p3 = jnp.maximum(xb * A.astype(jnp.bfloat16)
+                         + B.astype(jnp.bfloat16), 0)
+        pq3 = jnp.clip(jnp.round(p3.astype(jnp.float32) / s_p), 0,
+                       127).astype(jnp.int8)
+        pq2 = jnp.clip(jnp.round(jnp.maximum(
+            pooled.astype(jnp.float32) * (s_root * A / s_p) + B / s_p, 0)),
+            0, 127).astype(jnp.int8)
+        return yq, pooled, pq3, pq2
+    return [np.asarray(t) for t in jax.jit(stem)(qp, s_root, s_p, images)]
 
 
+@pytest.mark.parametrize("h,w", [(64, 64), (30, 38)])
 @pytest.mark.parametrize("int8_root,u8_frames", [
     (True, False), ("wfold", False), ("u8", False), ("u8", True),
 ])
-def test_stem_and_pool_match_jax(trunk, int8_root, u8_frames):
+def test_stem_and_pool_match_jax(trunk, int8_root, u8_frames, h, w):
     """The plan's stem (input transform, contraction, epilogue) and the
-    int8 pool on 6 frames of 30x38 against the JAX package's stem jitted:
-    int8 equal. 30x38 puts odd sizes (15, 19) under the pool and a border
-    map that is not the interior sum."""
+    fused stem + pool wrapper (``_run_stem``) on 6 frames against the JAX
+    package's stem and reduce_window jitted, in every mode: the pooled map
+    (-1), its pre-activation dequantised to bf16 (3, int8_root alone) and
+    from the int8 stream (2, block 1 streamed): int8 equal. 30x38 puts odd
+    sizes (15, 19) under the pool, with a leading pad, and a border map
+    that is not the interior sum."""
     J, jax, jnp = trunk["J"], trunk["jax"], trunk["jnp"]
     rng = np.random.RandomState(11)
-    raw = rng.randint(0, 256, (6, 30, 38, 3)).astype(np.uint8)
-    floats = (rng.rand(6, 30, 38, 3).astype(np.float32) * 2 - 1)
+    raw = rng.randint(0, 256, (6, h, w, 3)).astype(np.uint8)
+    floats = (rng.rand(6, h, w, 3).astype(np.float32) * 2 - 1)
     if int8_root == "u8" and not u8_frames:
         floats = raw.astype(np.float32) * np.float32(2 / 255) - 1
     images = raw if u8_frames else floats
     s_root = np.float32(trunk["tscales"]["root/out"])
-    want_y, want_pool = _jax_stem(J, jax, jnp,
-                                  {k: jnp.asarray(v) for k, v in
-                                   trunk["qp"].items()},
-                                  s_root, jnp.asarray(images), int8_root)
+    s_p = np.float32(trunk["tscales"][PRE1 + "preact"])
+    want_y, want_pool, want_pq3, want_pq2 = _jax_stem(
+        J, jax, jnp, {k: jnp.asarray(v) for k, v in trunk["qp"].items()},
+        s_root, s_p, jnp.asarray(images), int8_root)
     plan = T.prepare_int8_static(trunk["tqp"], trunk["tscales"],
                                  int8_root=int8_root)
-    y = T._run_stem(plan["root"], torch.from_numpy(images))
+    streamed = T.prepare_int8_static(trunk["tqp"], trunk["tscales"],
+                                     int8_root=int8_root, int8_stream=(1,))
+    root, x = plan["root"], torch.from_numpy(images)
+    add, border = T._root_add(root, h, w)
+    full = add if border is None else R.stem_add_map(add, border, h, w,
+                                                     root["fold"])
+    kind = ("u8" if u8_frames else "u8_float") if root["u8"] else "f32"
+    y = R.root_stem_reference(x, root["wt"], root["mul"], full,
+                              fold=root["fold"], kind=kind)
     assert torch.equal(y, torch.from_numpy(want_y))
-    pooled = R.max_pool_s8(y)
-    assert torch.equal(pooled, torch.from_numpy(want_pool))
+    assert plan["pool_preact"].mode == 3
+    assert streamed["pool_preact"].mode == 2
+    for pre, want in ((None, want_pool), (plan["pool_preact"], want_pq3),
+                      (streamed["pool_preact"], want_pq2)):
+        got = T._run_stem(root, x, pre)
+        assert got.dtype == torch.int8
+        assert torch.equal(got, torch.from_numpy(want)), pre
 
 
 @pytest.mark.parametrize("h,w", [(32, 32), (15, 19), (112, 8), (1, 2)])
@@ -274,7 +307,7 @@ def test_max_pool_s8_reference_matches_max_pool_same(h, w):
     g = torch.Generator().manual_seed(h * w)
     x = torch.randint(-127, 128, (2, h, w, 32), generator=g,
                       dtype=torch.int8)
-    got = R.max_pool_s8(x)
+    got = R.max_pool_s8_reference(x)
     want = max_pool_same(x.float().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     assert torch.equal(got, want.to(torch.int8))
     pa, pb = torch.rand(32, generator=g) + 0.5, torch.randn(32, generator=g)
@@ -283,10 +316,77 @@ def test_max_pool_s8_reference_matches_max_pool_same(h, w):
                      pb.to(torch.bfloat16).float(), torch.tensor([0.05]), 3,
                      torch.tensor([0.0390625]))
     for pre in (two, three):
-        pq = R.max_pool_s8(x, preact=pre)
+        pq = R.max_pool_s8_reference(x, preact=pre)
         assert torch.equal(pq, K.preact_quant_reference(
             got, pre.pa, pre.pb, pre.s, mode=pre.mode, ds=pre.ds))
         assert 0 < int((pq > 0).sum()) < pq.numel()
+
+
+def test_root_add_refuses_a_doctored_map(trunk, monkeypatch):
+    """_root_add: the u8 border map equals the interior add away from the
+    border (the 663 of 12544 pixels of a 224x224 frame in rows and columns
+    0, 1 and 111 are the border), and a map that differs there, one
+    entry's ones_conv off by one, is refused."""
+    plan = T.prepare_int8_static(trunk["tqp"], trunk["tscales"],
+                                 int8_root="u8")
+    mask = R.border_mask(224, 224, "wfold")
+    assert int(mask.sum()) == 663
+    assert mask[:, [0, 1, 111]].all() and mask[[0, 1, 111]].all()
+    assert not mask[2:111, 2:111].any()
+    add, border = T._root_add(plan["root"], 30, 38)
+    inner = ~R.border_mask(30, 38, "wfold")
+    assert torch.equal(border[inner], add.expand(int(inner.sum()), 64))
+    assert not torch.equal(border[~inner],
+                           add.expand(int((~inner).sum()), 64))
+    real = T.root_conv_reference
+
+    def doctored(q, wt, fold):
+        acc = real(q, wt, fold)
+        acc[0, 7, 9, 5] += 1
+        return acc
+
+    monkeypatch.setattr(T, "root_conv_reference", doctored)
+    fresh = T.prepare_int8_static(trunk["tqp"], trunk["tscales"],
+                                  int8_root="u8")
+    with pytest.raises(RuntimeError, match="border map"):
+        T._run_stem(fresh["root"], torch.zeros(1, 30, 38, 3,
+                                               dtype=torch.uint8))
+
+
+def test_root_stem_pool_reads_the_border_map_only_at_the_border():
+    """root_stem_pool on the CPU: the pool of the plain stem with add at the
+    interior and border's entries at the border, whatever border holds
+    elsewhere; the pre-activation modes; the operands it refuses."""
+    x, wt, mul, add = _stem_operands("cpu", 2, 30, 38, "wfold", "u8")
+    border = add
+    add = torch.randn(64, generator=torch.Generator().manual_seed(3))
+    mask = R.border_mask(30, 38, "wfold")
+    full = torch.where(mask[..., None], border, add)
+    want = R.max_pool_s8_reference(R.root_stem_reference(
+        x, wt, mul, full, fold="wfold", kind="u8"))
+    got = R.root_stem_pool(x, wt, mul, add, fold="wfold", kind="u8",
+                           border=border)
+    assert got.shape == (2, 8, 10, 64) and torch.equal(got, want)
+    assert not torch.equal(got, R.max_pool_s8_reference(
+        R.root_stem_reference(x, wt, mul, border, fold="wfold", kind="u8")))
+    g = torch.Generator().manual_seed(4)
+    pa, pb = torch.rand(64, generator=g) + 0.5, torch.randn(64, generator=g)
+    for pre in (K.Preact(pa * 0.1, pb, None, 2),
+                K.Preact(pa.to(torch.bfloat16).float(),
+                         pb.to(torch.bfloat16).float(),
+                         torch.tensor([0.05]), 3, torch.tensor([0.0390625]))):
+        pq = R.root_stem_pool(x, wt, mul, add, fold="wfold", kind="u8",
+                              border=border, preact=pre)
+        assert torch.equal(pq, K.preact_quant_reference(
+            want, pre.pa, pre.pb, pre.s, mode=pre.mode, ds=pre.ds))
+    with pytest.raises(ValueError, match="map goes in border"):
+        R.root_stem_pool(x, wt, mul, border, fold="wfold", kind="u8")
+    with pytest.raises(ValueError, match="border must be"):
+        R.root_stem_pool(x, wt, mul, add, fold="wfold", kind="u8",
+                         border=border[:, :-1])
+    with pytest.raises(ValueError, match="mode 2 or 3"):
+        R.root_stem_pool(x, wt, mul, add, fold="wfold", kind="u8",
+                         preact=K.Preact(pa, pb, None, 0))
 
 
 def _stream_operands(rng, n=4, h=14, c=64, cb=32):
@@ -453,25 +553,23 @@ def _counting(monkeypatch, module, names):
                               + TRUNK_CASES[4:]])
 def test_plan_launches_predicts_the_calls(trunk, monkeypatch, name, opts,
                                           u8):
-    """plan_launches against the wrappers' calls of one run: the stem, the
-    pool, the convs by epilogue, K2's units, the standalone
+    """plan_launches against the wrappers' calls of one run: the fused
+    stem and pool, the convs by epilogue, K2's units, the standalone
     pre-activations, and every pre-activation by mode."""
     plan = T.prepare_int8_static(trunk["tqp"], trunk["tscales"], **opts)
     want = T.plan_launches(plan)
     calls = _counting(monkeypatch, T, ["conv_s8", "preact_quant",
-                                       "root_stem", "max_pool_s8",
-                                       "fused_block_pq"])
+                                       "root_stem_pool", "fused_block_pq"])
     T.run_int8_static(plan, trunk["x"])
     epis = {e: sum(kw.get("epilogue") == e for _, kw in calls["conv_s8"])
             for e in want["conv"]}
     assert epis == want["conv"]
     assert sum(want["conv"].values()) == len(calls["conv_s8"])
-    assert len(calls["root_stem"]) == want["root"]
-    assert len(calls["max_pool_s8"]) == want["pool"]
+    assert len(calls["root_stem_pool"]) == want["root_pool"]
     assert len(calls["preact_quant"]) == want["preact"]
     assert sum(len(a[1]) for a, _ in calls["fused_block_pq"]) == want["block"]
     modes = {m: 0 for m in K.PREACT_MODES}
-    for _, kw in calls["conv_s8"] + calls["max_pool_s8"]:
+    for _, kw in calls["conv_s8"] + calls["root_stem_pool"]:
         if kw.get("preact") is not None:
             modes[kw["preact"].mode] += 1
     for _, kw in calls["preact_quant"]:
@@ -532,43 +630,74 @@ def _stem_operands(dev, n, h, w, fold, kind, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w", [(8, 224, 224), (3, 64, 64), (2, 30, 38)])
+@pytest.mark.parametrize("mode", [-1, 2, 3])
+@pytest.mark.parametrize("n,h,w", [(8, 224, 224), (3, 64, 64), (2, 30, 38),
+                                   (1, 30, 302)])
 @pytest.mark.parametrize("fold,kind", [("s2d", "f32"), ("wfold", "f32"),
                                        ("wfold", "u8_float"),
                                        ("wfold", "u8")])
-def test_cuda_root_stem_matches_plain(cuda_device, fold, kind, n, h, w):
-    x, wt, mul, add = _stem_operands(cuda_device, n, h, w, fold, kind)
-    before = R.LAUNCHES[R.ROOT]
-    got = R.root_stem(x, wt, mul, add, fold=fold, kind=kind)
-    torch.cuda.synchronize()
-    assert R.LAUNCHES[R.ROOT] == before + 1
-    want = R.root_stem_reference(x, wt, mul, add, fold=fold, kind=kind)
-    assert torch.equal(got, want)
-    # The other form of add (a map for the per-channel stems and back).
-    ho, wo = R.root_geometry(h, w, fold)
-    other = (add[0, 0].contiguous() if add.dim() == 3
-             else torch.randn(ho, wo, 64, device=cuda_device))
-    got = R.root_stem(x, wt, mul, other, fold=fold, kind=kind)
-    want = R.root_stem_reference(x, wt, mul, other, fold=fold, kind=kind)
-    assert torch.equal(got, want)
+def test_cuda_root_stem_pool_matches_plain(cuda_device, fold, kind, n, h, w,
+                                           mode):
+    """The fused stem + pool kernel against its plain version, with and
+    without a border map, in each mode: equal. 30x38 has odd stem sizes
+    (a leading pool pad), 30x302 is split into column bands (Wo = 151)."""
+    x, wt, mul, border = _stem_operands(cuda_device, n, h, w, fold, kind)
+    if border.dim() == 1:
+        ho, wo = R.root_geometry(h, w, fold)
+        border = torch.randn(ho, wo, 64, device=cuda_device)
+    add = torch.randn(64, device=cuda_device)
+    g = torch.Generator().manual_seed(mode + 10)
+    pa = (torch.rand(64, generator=g) + 0.5).to(cuda_device)
+    pb = torch.randn(64, generator=g).to(cuda_device)
+    pre = {-1: None,
+           2: K.Preact(pa * 0.1, pb, None, 2),
+           3: K.Preact(pa.to(torch.bfloat16).float(),
+                       pb.to(torch.bfloat16).float(),
+                       torch.tensor([0.05], device=cuda_device), 3,
+                       torch.tensor([0.0390625], device=cuda_device))}[mode]
+    for b in (None, border):
+        before = R.LAUNCHES[R.STEM_POOL]
+        got = R.root_stem_pool(x, wt, mul, add, fold=fold, kind=kind,
+                               preact=pre, border=b)
+        torch.cuda.synchronize()
+        assert R.LAUNCHES[R.STEM_POOL] == before + 1
+        want = R.root_stem_pool_reference(x, wt, mul, add, fold=fold,
+                                          kind=kind, preact=pre, border=b)
+        assert got.shape == want.shape
+        assert float((got.float() - want.float()).abs().max()) == 0.0
+
+
+def _misaligned(t):
+    """A contiguous copy of t that starts 4 bytes past a 16-byte boundary,
+    as a slice of frames can."""
+    buf = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8,
+                      device=t.device)
+    off = (4 - buf.data_ptr()) % 16
+    out = buf[off:off + t.numel() * t.element_size()].view(t.dtype).view(
+        t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w", [(112, 112), (32, 32), (15, 19)])
-def test_cuda_pool_matches_plain(cuda_device, h, w):
-    g = torch.Generator().manual_seed(h)
-    x = torch.randint(-127, 128, (6, h, w, 64), generator=g,
-                      dtype=torch.int8).to(cuda_device)
-    pa = (torch.rand(64, generator=g) + 0.5).to(cuda_device)
-    pb = torch.randn(64, generator=g).to(cuda_device)
-    s = torch.tensor([0.05], device=cuda_device)
-    ds = torch.tensor([0.0390625], device=cuda_device)
-    for pre in (None, K.Preact(pa * 0.1, pb, None, 2),
-                K.Preact(pa.to(torch.bfloat16).float(),
-                         pb.to(torch.bfloat16).float(), s, 3, ds)):
-        got = R.max_pool_s8(x, preact=pre)
-        torch.cuda.synchronize()
-        assert torch.equal(got, R.max_pool_s8_reference(x, preact=pre))
+@pytest.mark.parametrize("fold,kind", [("s2d", "f32"), ("wfold", "f32"),
+                                       ("wfold", "u8_float"),
+                                       ("wfold", "u8")])
+def test_cuda_root_stem_pool_takes_misaligned_frames(cuda_device, fold,
+                                                     kind):
+    """Frames and a border map that do not start on 16 bytes (x[1:] of
+    uint8 30x38 frames, say) run, and equal the plain version."""
+    x, wt, mul, border = _stem_operands(cuda_device, 3, 30, 38, fold, kind)
+    if border.dim() == 1:
+        ho, wo = R.root_geometry(30, 38, fold)
+        border = torch.randn(ho, wo, 64, device=cuda_device)
+    add = torch.randn(64, device=cuda_device)
+    xs, bs = _misaligned(x[1:]), _misaligned(border)
+    got = R.root_stem_pool(xs, wt, mul, add, fold=fold, kind=kind, border=bs)
+    want = R.root_stem_pool_reference(x[1:], wt, mul, add, fold=fold,
+                                      kind=kind, border=border)
+    assert float((got.float() - want.float()).abs().max()) == 0.0
 
 
 @pytest.mark.cuda
