@@ -1,0 +1,12 @@
+"""The device's idle time per training step charged to the backward pass:
+the gaps that end at work launched inside the program's
+"hmmr.train.backward" range (``harness/spans.idle_by_span``)."""
+
+from hmmr_bench.harness import spans
+
+SPEC = {"unit": "ms", "better": "lower", "source": "device_trace",
+        "layer": "trainer backward", "moves": "train_fps"}
+
+
+def read(reading):
+    return spans.idle_ms(reading, spans.TRAIN, "hmmr.train.backward")

@@ -25,6 +25,9 @@ Counterpart of ``human_dynamics_tpu/infer/predictor.py``, inference only:
   (N, D, ...) over the sorted delta_t values.
 - ``predict_all_images_sharded`` splits the window groups over the ranks
   of a ``parallel.Mesh`` and gathers the results to every rank.
+- Under ``torch.profiler``, ``encode_frames`` is the range "hmmr.encode"
+  (``utils.logging.span``; every chunk) and the rest of
+  ``predict_all_images`` is "hmmr.window", with "hmmr.smpl" inside it.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from human_dynamics_tpu_torch.models.resnet_int8 import (
 )
 from human_dynamics_tpu_torch.ops.smpl_cuda import prepare_fused_constants
 from human_dynamics_tpu_torch.parallel.mesh import assemble, broadcast
+from human_dynamics_tpu_torch.utils.logging import span
 from human_dynamics_tpu_torch.utils.precision import full_fp32, to_bf16
 
 _TWO_OVER_255 = float(np.float32(2.0 / 255.0))
@@ -295,14 +299,15 @@ class HmmrPredictor:
         uint8 frames are raw video bytes, normalised on the device as
         x*(2/255)-1; anything else is taken as [-1, 1] floats.
         """
-        images = torch.as_tensor(images, device=self.device)
-        # Dynamic int8: the tail chunk is padded to the full chunk, as the
-        # JAX predictor pads it.
-        return torch.cat([
-            self._encode_chunk(images[i:i + self.encode_chunk],
-                               pad_to=self.encode_chunk)
-            for i in range(0, len(images), self.encode_chunk)
-        ])
+        with span("hmmr.encode"):
+            images = torch.as_tensor(images, device=self.device)
+            # Dynamic int8: the tail chunk is padded to the full chunk, as
+            # the JAX predictor pads it.
+            return torch.cat([
+                self._encode_chunk(images[i:i + self.encode_chunk],
+                                   pad_to=self.encode_chunk)
+                for i in range(0, len(images), self.encode_chunk)
+            ])
 
     # ------------------------------------------------------------------
     # Windowed prediction
@@ -383,12 +388,14 @@ class HmmrPredictor:
                 phi = frames
             else:
                 phi = self.encode_frames(frames)
-        phi = torch.as_tensor(phi, dtype=torch.float32, device=self.device)
-        out, _ = self._predict_block(phi, 1, 0)
-        out = {k: v[:len(phi)] for k, v in out.items()}
-        if as_numpy:
-            out = {k: v.cpu().numpy() for k, v in out.items()}
-        return out
+        with span("hmmr.window"):
+            phi = torch.as_tensor(phi, dtype=torch.float32,
+                                  device=self.device)
+            out, _ = self._predict_block(phi, 1, 0)
+            out = {k: v[:len(phi)] for k, v in out.items()}
+            if as_numpy:
+                out = {k: v.cpu().numpy() for k, v in out.items()}
+            return out
 
     def _predict_block(self, phi: torch.Tensor, parts: int, idx: int):
         """Block ``idx`` of ``parts`` contiguous blocks of phi's window

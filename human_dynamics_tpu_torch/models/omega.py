@@ -22,6 +22,7 @@ from human_dynamics_tpu_torch.ops.smpl_cuda import (
     FusedSmplConstants,
     smpl_forward_fused,
 )
+from human_dynamics_tpu_torch.utils.logging import span
 
 CAM_DIM = 3
 POSE_DIM = 72
@@ -72,41 +73,44 @@ def compute_smpl(
     With ``use_optcam`` (and no override) the 2-D keypoints are
     joints[..., :2]; otherwise the packed camera, or ``cams_override``, is
     applied by weak-perspective projection. ``fused_constants`` is used
-    only with ``fused=True``; None prepares them on the spot.
+    only with ``fused=True``; None prepares them on the spot. Under
+    ``torch.profiler`` the decode is the range "hmmr.smpl".
     """
-    lead = raw.shape[:-1]
-    n = math.prod(lead)
-    cams, poses, shapes = split_omega(raw.reshape(n, OMEGA_DIM))
+    with span("hmmr.smpl"):
+        lead = raw.shape[:-1]
+        n = math.prod(lead)
+        cams, poses, shapes = split_omega(raw.reshape(n, OMEGA_DIM))
 
-    if fused:
-        out = smpl_forward_fused(
-            model, shapes, poses, constants=fused_constants,
-            want_verts=want_verts,
+        if fused:
+            out = smpl_forward_fused(
+                model, shapes, poses, constants=fused_constants,
+                want_verts=want_verts,
+            )
+        else:
+            if fused_constants is not None:
+                raise ValueError("fused_constants given with fused=False")
+            out = smpl_forward(model, shapes, poses)
+        k = out.joints.shape[1]
+
+        if use_optcam and cams_override is None:
+            kps = out.joints[:, :, :2]
+        else:
+            cam_use = (
+                cams_override.reshape(n, CAM_DIM)
+                if cams_override is not None else cams
+            )
+            kps = orth_proj_idrot(out.joints, cam_use)
+
+        verts = (
+            out.verts.reshape(lead + out.verts.shape[1:]) if want_verts
+            else None
         )
-    else:
-        if fused_constants is not None:
-            raise ValueError("fused_constants given with fused=False")
-        out = smpl_forward(model, shapes, poses)
-    k = out.joints.shape[1]
-
-    if use_optcam and cams_override is None:
-        kps = out.joints[:, :, :2]
-    else:
-        cam_use = (
-            cams_override.reshape(n, CAM_DIM)
-            if cams_override is not None else cams
+        return OmegaSmpl(
+            joints=out.joints.reshape(lead + (k, 3)),
+            kps=kps.reshape(lead + (k, 2)),
+            poses_rot=out.rots.reshape(lead + (24, 3, 3)),
+            verts=verts,
         )
-        kps = orth_proj_idrot(out.joints, cam_use)
-
-    verts = (
-        out.verts.reshape(lead + out.verts.shape[1:]) if want_verts else None
-    )
-    return OmegaSmpl(
-        joints=out.joints.reshape(lead + (k, 3)),
-        kps=kps.reshape(lead + (k, 2)),
-        poses_rot=out.rots.reshape(lead + (24, 3, 3)),
-        verts=verts,
-    )
 
 
 class OmegaGt(NamedTuple):

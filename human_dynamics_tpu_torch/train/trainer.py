@@ -128,6 +128,7 @@ from human_dynamics_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from human_dynamics_tpu_torch.utils.config import Config
+from human_dynamics_tpu_torch.utils.logging import span
 from human_dynamics_tpu_torch.utils.precision import full_fp32, to_bf16
 from human_dynamics_tpu_torch.utils.weights import (
     export_jax_variables,
@@ -547,20 +548,28 @@ def train_step(
     metrics as detached device scalars (no host sync). With a ``mesh``,
     ``batch`` is this rank's block; the gradients (sharded ones too) are
     summed over the ranks of the mesh's batch axes before the Adams step,
-    and the metrics are the global losses."""
+    and the metrics are the global losses. Under ``torch.profiler`` the
+    phases are the ranges "hmmr.train.forward", "hmmr.train.backward" and
+    "hmmr.train.optimizer"; the gradient exchange is in none of them."""
     with full_fp32():
-        e_loss, d_loss, metrics = compute_losses(
-            config, state.hmmr, state.disc, smpl, batch, train=True,
-            generator=generator, fused_constants=fused_constants, mesh=mesh,
-        )
-        _zero_grads(state.opt_e)
-        _zero_grads(state.opt_d)
-        (e_loss + d_loss).backward()
+        with span("hmmr.train.forward"):
+            e_loss, d_loss, metrics = compute_losses(
+                config, state.hmmr, state.disc, smpl, batch, train=True,
+                generator=generator, fused_constants=fused_constants,
+                mesh=mesh,
+            )
+        # The backward's kernels launch from autograd's device thread, but
+        # while .backward() blocks, so within this range's interval.
+        with span("hmmr.train.backward"):
+            _zero_grads(state.opt_e)
+            _zero_grads(state.opt_d)
+            (e_loss + d_loss).backward()
     if mesh is not None:
         sum_gradients((state.hmmr, state.disc), mesh, mesh.batch_axes)
         metrics = _global_metrics(metrics, mesh)
-    state.opt_e.step()
-    state.opt_d.step()
+    with span("hmmr.train.optimizer"):
+        state.opt_e.step()
+        state.opt_d.step()
     state.step += 1
     return {k: v.detach() for k, v in metrics.items()}
 
